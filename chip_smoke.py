@@ -3,25 +3,38 @@
 
 Run from the repository root, on a machine with an NVIDIA card and nvcc:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # everything (what the chip check runs)
+    python3 chip_smoke.py --quick    # build, checks and main paths; no timing
 
-It builds the port's CUDA kernels from the sources in the checkout, then:
+It builds the port's CUDA kernels from the sources in the checkout (one nvcc
+per source, all started together), then:
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions and the kernel build time;
-2. holds dfa_phase1 and dfa_phase3 (with and without posbase) against
-   their plain PyTorch versions on the same CUDA tensors, for several
-   patterns and at the main path's shapes: they must be bit-equal;
+   versions, the kernel build time and what ptxas reports;
+2. holds every kernel against its plain PyTorch version on the same CUDA
+   tensors, bit for bit: dfa_phase1 and dfa_phase3 (with and without
+   posbase) for 7 pattern sets, and schain_fused in its L, L+I and count
+   modes, with the FF tile skip on and off, with the solo and a neutral
+   seed (G included), at n = P, P-3, a tile edge, 1 and 0, for 8 pattern
+   sets on dense and sparse texts, at fused blocks K = 8, 24 and 64 beside
+   the default 32, and at the main path's shapes; the sparse texts must
+   take the skip;
 3. runs the main path, `Pattern(r"\\b\\w+ing\\b").match_all_arrays(text)`
    on the 10 MB config-3 corpus, with the launch counters set to 0 just
-   before and read just after, and checks the spans against Python `re`,
-   against the port's own CPU run and against `match_all_count`;
-4. runs the 3-pattern tokenizer on 1 MB and `\\b\\w+ing\\b` on a sparse
-   punctuation text (the fast-forward route, dfa_phase3 with posbase),
-   each against the CPU run, with its own launch counts;
-5. times the kernels, their plain versions, the suffix scan, the whole
-   L-array computation and match_all_arrays with CUDA events, on the 10 MB
-   text and on a 256 MiB text from the same generator.
+   before and read just after: it must launch schain_fused and neither
+   split kernel, and give the spans of Python `re`, of the port's CPU run
+   and of match_all_count; the count mode (count_device_staged, and
+   match_all_count of an overlap-free pattern) and a staged corpus
+   (`stage`) on every entry point are checked on the same text;
+4. drives the split kernels on their paths, each with its own counts: a
+   250-word alternation (tables too large for the fused kernel),
+   `Config(schain_fused='off')` on the main text and on a sparse text (the
+   fast-forward route, dfa_phase3 with posbase); and the 3-pattern
+   tokenizer on the fused route; each against `re` or the CPU run;
+5. times the kernels, their plain versions, the split route's stages and
+   the entry points' walls (host bytes and staged corpus) with CUDA events
+   and the host clock, on the 10 MB text and on a 256 MiB text from the
+   same generator.
 
 Every result is a JSON line; the `{"kernels": [...]}` line and the card's
 nvidia-smi line come just before the last line, which is
@@ -52,12 +65,21 @@ PEAK_LANE_OPS_PER_S = 67e12 / 2
 ALU_OPS_PER_STEP = 7
 MAIN_PATTERN = rb"\b\w+ing\b"
 TOKENIZER = [rb"\w+", rb"\s+", rb"[^\w\s]+"]
+COUNT_PATTERN = rb"matching"   # overlap-free: MatchAllCount in count mode
 K = 32
-SOURCE = "rejit_tpu_torch/kernels/csrc/dfa_phases.cu"
+SOURCES = {
+    "dfa_phase1": "rejit_tpu_torch/kernels/csrc/dfa_phases.cu",
+    "dfa_phase3": "rejit_tpu_torch/kernels/csrc/dfa_phases.cu",
+    "schain_fused": "rejit_tpu_torch/kernels/csrc/schain_fused.cu",
+}
 REPLACES = {
     "dfa_phase1": "rejit_tpu/kernels/dfa_pallas.py:95",
     "dfa_phase3": "rejit_tpu/kernels/dfa_pallas.py:175",
+    "schain_fused": "rejit_tpu/kernels/schain_pallas.py:1070",
 }
+DEV = "cuda"
+ENTRY_POINTS = ("match_full", "match_anywhere", "match_first", "match_all",
+                "tokenize", "match_all_count")
 
 
 def emit(obj) -> None:
@@ -92,25 +114,42 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def wall_s(fn, reps: int) -> dict:
+    """Host-clock walls of fn() after a warm-up: median, min, max."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return {"median_s": float(np.median(walls)), "min_s": min(walls),
+            "max_s": max(walls), "calls": reps}
+
+
 def max_abs_err(a, b) -> int:
     if isinstance(a, (tuple, list)):
         return max(max_abs_err(x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        check(a is None and b is None, "one output is missing")
+        return 0
     check(a.shape == b.shape and a.dtype == b.dtype, "shape/dtype differ")
     if a.numel() == 0:
         return 0
     return int((a.long() - b.long()).abs().max())
 
 
-def padded(text: bytes, dev) -> torch.Tensor:
+def padded(text: bytes, dev, grain: int = K) -> torch.Tensor:
     n = len(text)
-    P = max(1, -(-n // K)) * K
+    P = max(1, -(-n // grain)) * grain
     pad = np.zeros(P, dtype=np.uint8)
     pad[:n] = np.frombuffer(text, dtype=np.uint8)
     return torch.from_numpy(pad).to(dev)
 
 
-def kernels_vs_plain(rt, pats, text: bytes, dev, seed: int) -> dict:
-    """Max |kernel - plain| of each kernel on the same CUDA tensors, and
+def split_kernels_vs_plain(rt, pats, text: bytes, dev, seed: int) -> dict:
+    """Max |kernel - plain| of dfa_phase1/3 on the same CUDA tensors, and
     whether the kernels kept the table in shared memory."""
     from rejit_tpu_torch.engine import pipeline
     from rejit_tpu_torch.kernels import dfa_cuda as dc
@@ -146,6 +185,36 @@ def kernels_vs_plain(rt, pats, text: bytes, dev, seed: int) -> dict:
             "smem_table": dc.table_in_smem(ct.n_states, C)}
 
 
+def fused_vs_plain(ct, text: torch.Tensor, ns, modes=("l", "li", "count"),
+                   seeds=("solo", "neutral"), block: int = K) -> dict:
+    """Max |schain_fused - schain_fused_plain| (L, I, count and G) over the
+    n values, seeds, modes and the FF skip on/off, on the same CUDA text;
+    and the tiles the kernel skipped with the skip on."""
+    from rejit_tpu_torch.kernels import schain_cuda as sc
+
+    err, skipped, tiles, calls = 0, 0, 0, 0
+    for n in ns:
+        for name in seeds:
+            seed = (sc.solo_seed(ct, n) if name == "solo"
+                    else sc.neutral_seed(ct.n_states, text.device))
+            for mode in modes:
+                want = sc.schain_fused_plain(ct, text, n, seed, block=block,
+                                             mode=mode)
+                for use_ff in (True, False):
+                    stats = {}
+                    got = sc.schain_fused(ct, text, n, seed, block=block,
+                                          mode=mode, use_ff=use_ff,
+                                          stats=stats)
+                    err = max(err, max_abs_err(got, want))
+                    calls += 1
+                    if use_ff:
+                        skipped += int(stats["skipped_tiles"])
+                        tiles += stats["tiles"]
+    torch.cuda.synchronize()
+    return {"max_abs_err": err, "calls": calls, "tiles": tiles,
+            "skipped_tiles": skipped}
+
+
 def spans_of(out) -> list:
     return list(zip(out[0].tolist(), out[1].tolist()))
 
@@ -154,56 +223,103 @@ def re_spans(pattern: bytes, text: bytes) -> list:
     return [m.span() for m in re.finditer(pattern, text)]
 
 
-def kernel_bounds(n: int, P: int, Q: int, C: int):
+def bound(nbytes: float, n: int, Q: int) -> dict:
+    """The larger of `nbytes` over HBM bandwidth and Q automaton steps per
+    text byte below n over the lane issue rate."""
+    ops = ALU_OPS_PER_STEP * n * Q
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / PEAK_LANE_OPS_PER_S
+    return {"bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def kernel_bounds(n: int, P: int, Q: int, C: int) -> dict:
     """{kernel: {bound_ms, bound_by, bytes, ops}}: the larger of the bytes
     each function must move (inputs read once, outputs written once) over
     HBM bandwidth and its ALU instructions over the lane issue rate. Each
     function needs Q automaton steps per text byte below n: phase 1 runs
-    every start state through its block, and phase 3's L/I can be composed
-    backward over the Q states (its kernel takes (K+1)/2 steps per byte
-    instead, one thread per boundary)."""
+    every start state through its block, phase 3's L/I and the fused
+    function's can be composed backward over the Q states (their kernels
+    take (K+1)/2 more steps per byte, one thread per boundary). The fused
+    function reads the uint8 text and writes L (4 B a byte, one pattern),
+    or nothing in the count mode."""
     nb = P // K
     tab = Q * C * 4
-    ops = ALU_OPS_PER_STEP * min(n, P) * Q
-    p1_bytes = P * 4 + tab + 3 * nb * Q * 4
-    p3_bytes = 2 * P * 4 + 2 * nb * Q * 4 + tab + 2 * P * 4
-    out = {}
-    for name, b in (("dfa_phase1", p1_bytes), ("dfa_phase3", p3_bytes)):
-        tb, to = b / HBM_BYTES_PER_S, ops / PEAK_LANE_OPS_PER_S
-        out[name] = {
-            "bound_ms": max(tb, to) * 1e3,
-            "bound_by": "bytes" if tb >= to else "operations",
-            "bytes": b, "ops": ops,
-        }
-    return out
+    steps = min(n, P)
+    p1 = P * 4 + tab + 3 * nb * Q * 4
+    p3 = 2 * P * 4 + 2 * nb * Q * 4 + tab + 2 * P * 4
+    return {
+        "dfa_phase1": bound(p1, steps, Q),
+        "dfa_phase3": bound(p3, steps, Q),
+        "schain_fused": bound(P + tab + 4 * P, steps, Q),
+        "schain_fused_count": bound(P + tab, steps, Q),
+    }
 
 
 def time_size(rt, text: bytes, label: str, reps: int,
-              wall_reps: int) -> dict:
-    """Device times of each stage at one text size, on the card."""
+              wall_reps: int) -> tuple:
+    """Device times of each stage and entry-point walls at one text size."""
     from rejit_tpu_torch.engine import pipeline, select
     from rejit_tpu_torch.kernels import dfa_cuda as dc
+    from rejit_tpu_torch.kernels import schain_cuda as sc
 
     n = len(text)
-    p = rt.Pattern(MAIN_PATTERN)
+    p = rt.Pattern(MAIN_PATTERN, device=DEV)
+    q = rt.Pattern(MAIN_PATTERN, rt.Config(schain_fused="off"), device=DEV)
+    cp = rt.Pattern(COUNT_PATTERN, device=DEV)
+    check(p.fused and not q.fused and cp.fused, "routes")
     ct = p.ct
     C, Q = ct.n_classes, ct.n_states
-    dev_text = padded(text, "cuda")
+    dev_text = padded(text, DEV)
     P = dev_text.shape[0]
+    plain_reps = max(1, reps // 4)
+    res = {"label": label, "n": n, "P": P, "Q": Q, "C": C, "K": K}
+
+    # The fused route.
+    seed = sc.solo_seed(ct, n)
+    staged = (dev_text, sc.stage_meta(ct, dev_text))
+    NB, ntiles, tps, nseg = sc.geometry(Q, K, P)
+    res.update({
+        "tiles": ntiles, "tile_bytes": NB * K, "segments": nseg,
+        "schain_fused_ms": time_ms(
+            lambda: sc.schain_fused(ct, dev_text, n, seed, block=K,
+                                    mode="l"), reps),
+        "schain_fused_count_ms": time_ms(
+            lambda: sc.schain_fused(ct, dev_text, n, seed, block=K,
+                                    mode="count"), reps),
+        "schain_fused_plain_ms": time_ms(
+            lambda: sc.schain_fused_plain(ct, dev_text, n, seed, block=K,
+                                          mode="l"), plain_reps, 1),
+        "schain_fused_count_plain_ms": time_ms(
+            lambda: sc.schain_fused_plain(ct, dev_text, n, seed, block=K,
+                                          mode="count"), plain_reps, 1),
+        "fused_l_arrays_ms": time_ms(
+            lambda: sc.l_arrays_device_staged(ct, staged, n, block=K), reps),
+    })
+    # The fused block K (Config.fused_block), the default 32 beside others.
+    res["schain_fused_ms_by_block"] = {
+        k: time_ms(lambda: sc.schain_fused(ct, dev_text, n, seed, block=k,
+                                           mode="l"), reps)
+        for k in (16, 32, 64)
+    }
+    dc.reset_launches()
+    sc.reset_launches()
+    sc.l_arrays_device_staged(ct, staged, n, block=K)
+    res["schain_fused_launches_per_call"] = sc.LAUNCHES["schain_fused"]
+
+    # The split route (as measured before the fused route existed).
     v = pipeline.views(ct, dev_text, K)
     summ = pipeline.phase1_summaries(ct, v.cls_kb, n)
-    seed = pipeline.eot_seed(ct, n)
-    suf = pipeline.suffix_scan(summ, seed)
-    plain_reps = max(1, reps // 4)
-    res = {
-        "label": label, "n": n, "P": P, "nb": v.nb, "Q": Q, "C": C, "K": K,
+    eseed = pipeline.eot_seed(ct, n)
+    suf = pipeline.suffix_scan(summ, eseed)
+    res.update({
         "views_ms": time_ms(lambda: pipeline.views(ct, dev_text, K), reps),
         "dfa_phase1_ms": time_ms(
             lambda: dc.phase1(ct.packed, C, v.cls_kb, n), reps),
         "dfa_phase1_plain_ms": time_ms(
             lambda: dc.phase1_plain(ct.packed, C, v.cls_kb, n), plain_reps, 1),
         "suffix_scan_ms": time_ms(
-            lambda: pipeline.suffix_scan(summ, seed), reps),
+            lambda: pipeline.suffix_scan(summ, eseed), reps),
         "dfa_phase3_ms": time_ms(
             lambda: dc.phase3(ct.packed, C, suf, v.cls_kb, v.startsb, n),
             reps),
@@ -212,41 +328,42 @@ def time_size(rt, text: bytes, label: str, reps: int,
                                     n), plain_reps, 1),
         "l_arrays_device_ms": time_ms(
             lambda: pipeline.l_arrays_device(ct, dev_text, n, block=K), reps),
-    }
-    bounds = kernel_bounds(n, P, Q, C)
-    for name, b in bounds.items():
+    })
+    for name, b in kernel_bounds(n, P, Q, C).items():
         res[name + "_bound_ms"] = b["bound_ms"]
         res[name + "_bound_by"] = b["bound_by"]
     # suffix scan: its summaries read once and its suffixes written once
     res["suffix_scan_bound_ms"] = 6 * v.nb * Q * 4 / HBM_BYTES_PER_S * 1e3
-    del v, summ, suf, dev_text
-    # match_all_arrays end to end: wall clock over wall_reps calls after a
-    # warm-up, each split by last_stats; median and spread.
-    p.match_all_arrays(text)  # warm-up
-    torch.cuda.synchronize()
+    del v, summ, suf, staged, dev_text
+
+    # Entry points end to end (host clock, after a warm-up).
+    corpus = rt.stage(text, DEV)
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
-    walls, devs, sels = [], [], []
-    for _ in range(wall_reps):
-        t0 = time.perf_counter()
-        out = p.match_all_arrays(text)
-        walls.append(time.perf_counter() - t0)
-        devs.append(p.last_stats.device_time_s)
-        sels.append(p.last_stats.select_time_s)
-    wall = float(np.median(walls))
-    res.update({
-        "match_all_calls": wall_reps,
-        "match_all_wall_s": wall,
-        "match_all_wall_min_s": min(walls),
-        "match_all_wall_max_s": max(walls),
-        "match_all_device_s": float(np.median(devs)),
-        "match_all_select_s": float(np.median(sels)),
-        "match_all_GBps": n / wall / 1e9,
-        "l_arrays_GBps": n / (res["l_arrays_device_ms"] / 1e3) / 1e9,
-        "matches": len(out[0]),
-        "peak_device_bytes_per_text_byte":
-            (torch.cuda.max_memory_allocated() - base_mem) / n,
-    })
+    out = p.match_all_arrays(text)
+    res["fused_peak_device_bytes_per_text_byte"] = (
+        torch.cuda.max_memory_allocated() - base_mem) / n
+    walls = {
+        "match_all": wall_s(lambda: p.match_all_arrays(text), wall_reps),
+        "match_all_staged": wall_s(lambda: p.match_all_arrays(corpus),
+                                   wall_reps),
+        "match_all_count": wall_s(lambda: p.match_all_count(text),
+                                  wall_reps),
+        "match_all_split": wall_s(lambda: q.match_all_arrays(text),
+                                  wall_reps),
+        "count_mode_match_all_count": wall_s(
+            lambda: cp.match_all_count(text), wall_reps),
+    }
+    for k, w in walls.items():
+        res[k + "_wall"] = w
+        res[k + "_GBps"] = n / w["median_s"] / 1e9
+    p.match_all_arrays(text)
+    res["match_all_device_s"] = p.last_stats.device_time_s
+    res["match_all_select_s"] = p.last_stats.select_time_s
+    res["matches"] = len(out[0])
+    out_split = q.match_all_arrays(text)
+    check(all(np.array_equal(a, b) for a, b in zip(out, out_split)),
+          f"{label}: fused and split routes differ")
     # Selection with and without the all-disjoint shortcut. Every candidate
     # of this pattern is selected (n_cand equals the matches), so the
     # selected spans are the candidate list the greedy pass walks.
@@ -265,8 +382,9 @@ def time_size(rt, text: bytes, label: str, reps: int,
 
 def sparse_text(size: int, seed: int) -> bytes:
     """Punctuation and spaces with a rare word every few thousand bytes:
-    most 32-byte blocks hold no word byte, so the fast-forward route runs
-    phase 3 on the gathered candidate blocks only."""
+    most 32-byte blocks (and 2 KB tiles) hold no word byte, so the split
+    route's fast-forward runs phase 3 on the gathered candidate blocks only
+    and the fused kernel skips tiles."""
     rng = np.random.default_rng(seed)
     buf = rng.choice(np.frombuffer(b".,;:-!? ", np.uint8), size=size)
     words = [b"singing", b"ring", b"sting9", b"ingot", b"mingling"]
@@ -281,12 +399,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device available", file=sys.stderr)
         return 1
+    quick = "--quick" in sys.argv[1:]
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import rejit_tpu_torch as rt
-    from rejit_tpu_torch.engine import pipeline
     from rejit_tpu_torch.kernels import build
     from rejit_tpu_torch.kernels import dfa_cuda as dc
+    from rejit_tpu_torch.kernels import schain_cuda as sc
     from rejit_tpu_torch.utils.corpus import make_corpus
+
+    def launches():
+        return {**dc.LAUNCHES, **sc.LAUNCHES}
+
+    def reset():
+        torch.cuda.synchronize()
+        dc.reset_launches()
+        sc.reset_launches()
 
     # 1. The card and the build.
     card = nvidia_smi("name,power.limit")
@@ -302,113 +429,232 @@ def main() -> int:
     # 2. Kernels against their plain versions, bit for bit.
     main_text = make_corpus(10_000_000, seed=2, needle=b"matching",
                             density=0.01)
-    errs = {"dfa_phase1": 0, "dfa_phase3": 0}
+    sp_text = sparse_text(10_000_000, seed=5)
+    errs = {"dfa_phase1": 0, "dfa_phase3": 0, "schain_fused": 0}
     rng = np.random.default_rng(7)
     alphabet = np.frombuffer(b"abfo liner\n singing! foo bar baz line", np.uint8)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    words = sorted({rng.choice(letters, size=int(rng.integers(5, 9))).tobytes()
+                    for _ in range(250)})
     cases = [(str(pats), pats, alphabet)
              for pats in (rb"\b\w+ing\b", rb"[a-z]+", rb"foo|bar|baz", rb"a*",
                           rb"^line", TOKENIZER)]
     # 250 random words: a table of ~88 KB, past the 48 KB kept in shared
-    # memory, so the kernels read it through the read-only cache.
-    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
-    words = sorted({rng.choice(letters, size=int(rng.integers(5, 9))).tobytes()
-                    for _ in range(250)})
+    # memory, so the split kernels read it through the read-only cache; too
+    # large for the fused kernel.
     cases.append(("250-word alternation", b"|".join(words),
                   np.frombuffer(b"abcdefghijklmnopqrstuvwxyz  ", np.uint8)))
     for j, (label, pats, chars) in enumerate(cases):
         size = 200_000 + 37 + j  # n is not a multiple of K
         text = rng.choice(chars, size=size).tobytes()
-        e = kernels_vs_plain(rt, pats, text, "cuda", seed=j)
+        e = split_kernels_vs_plain(rt, pats, text, DEV, seed=j)
         emit({"phase": "kernel_vs_plain", "patterns": label, "n": size,
               "max_abs_err": e})
         check(e.pop("smem_table") == (j < len(cases) - 1),
               f"{label}: unexpected table placement")
-        for k in errs:
+        for k in e:
             errs[k] = max(errs[k], e[k])
-    e = kernels_vs_plain(rt, MAIN_PATTERN, main_text, "cuda", seed=99)
+    e = split_kernels_vs_plain(rt, MAIN_PATTERN, main_text, DEV, seed=99)
     emit({"phase": "kernel_vs_plain", "patterns": "main path shapes",
           "n": len(main_text), "max_abs_err": e})
     e.pop("smem_table")
-    for k in errs:
+    for k in e:
         errs[k] = max(errs[k], e[k])
-    check(errs == {"dfa_phase1": 0, "dfa_phase3": 0},
-          f"kernels differ from their plain versions: {errs}")
 
-    # 3. The main path at the published config-3 size.
-    p = rt.Pattern(MAIN_PATTERN)
-    dc.reset_launches()
+    # schain_fused: 6 sets of the split phase plus two large-Q sets (82 and
+    # 242 states: 16 and 8 sub-blocks a tile), dense and sparse texts.
+    long_words = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz" * 4 + b" ",
+                               np.uint8)
+    fcases = cases[:-1] + [
+        (r"\b[a-z]{40,80}\b", rb"\b[a-z]{40,80}\b", long_words),
+        (r"\b[a-z]{100,240}\b", rb"\b[a-z]{100,240}\b", long_words),
+    ]
+    sparse_small = sparse_text(200_000, seed=11)
+    skipped_total = 0
+    for j, (label, pats, chars) in enumerate(fcases):
+        ct = rt.Pattern(pats, device=DEV).ct
+        for kind in ("dense", "sparse"):
+            text = (rng.choice(chars, size=200_000).tobytes()
+                    if kind == "dense" else sparse_small)
+            t = padded(text, DEV)
+            P = t.shape[0]
+            NB = sc.geometry(ct.n_states, K, P)[0]
+            e = fused_vs_plain(ct, t, (P, P - 3, 3 * NB * K, 1, 0))
+            emit({"phase": "fused_vs_plain", "patterns": label, "text": kind,
+                  "P": P, "Q": ct.n_states, "skip_plan": ct.plan.skip, **e})
+            errs["schain_fused"] = max(errs["schain_fused"], e["max_abs_err"])
+            skipped_total += e["skipped_tiles"]
+    # Other fused blocks K (Config.fused_block), a power of two or not.
+    for pats in (MAIN_PATTERN, TOKENIZER):
+        ct = rt.Pattern(pats, device=DEV).ct
+        for kb in (8, 24, 64):
+            t = padded(sparse_small[:150_000] + main_text[:50_000], DEV, kb)
+            P = t.shape[0]
+            e = fused_vs_plain(ct, t, (P, P - 3, 1), block=kb)
+            emit({"phase": "fused_vs_plain", "patterns": str(pats),
+                  "text": "mixed", "block": kb, "P": P, **e})
+            errs["schain_fused"] = max(errs["schain_fused"], e["max_abs_err"])
+    ct = rt.Pattern(MAIN_PATTERN, device=DEV).ct
+    for kind, text in (("main", main_text), ("sparse", sp_text)):
+        t = padded(text, DEV)
+        P = t.shape[0]
+        e = fused_vs_plain(ct, t, (P, P - 3), modes=("l", "count"),
+                           seeds=("solo",))
+        emit({"phase": "fused_vs_plain", "patterns": "main path shapes",
+              "text": kind, "P": t.shape[0], **e})
+        errs["schain_fused"] = max(errs["schain_fused"], e["max_abs_err"])
+        if kind == "sparse":
+            sparse_skips = e
+    check(errs == {"dfa_phase1": 0, "dfa_phase3": 0, "schain_fused": 0},
+          f"kernels differ from their plain versions: {errs}")
+    check(skipped_total > 0 and sparse_skips["skipped_tiles"] > 0,
+          "the FF tile skip was never taken")
+
+    # 3. The main path at the published config-3 size: the fused route.
+    p = rt.Pattern(MAIN_PATTERN, device=DEV)
+    check(p.fused, "main pattern not on the fused route")
+    reset()
     t0 = time.perf_counter()
     out = p.match_all_arrays(main_text)
     torch.cuda.synchronize()
     first_wall = time.perf_counter() - t0
-    launches = dict(dc.LAUNCHES)
-    check(all(launches[k] > 0 for k in launches),
-          f"main path skipped a kernel: {launches}")
+    main_launches = launches()
+    check(main_launches["schain_fused"] > 0
+          and main_launches["dfa_phase1"] == 0
+          and main_launches["dfa_phase3"] == 0,
+          f"main path launches: {main_launches}")
     got = spans_of(out)
     want = re_spans(MAIN_PATTERN, main_text)
     check(got == want, f"spans differ from re: {len(got)} vs {len(want)}")
     check(len(got) == 16897, f"expected 16897 matches, got {len(got)}")
-    cpu_out = rt.Pattern(MAIN_PATTERN, device="cpu").match_all_arrays(
-        main_text)
+    cpu = rt.Pattern(MAIN_PATTERN, device="cpu")
+    check(not cpu.fused, "CPU auto route")
+    cpu_out = cpu.match_all_arrays(main_text)
     check(all(np.array_equal(a, b) for a, b in zip(out, cpu_out)),
           "card and CPU runs differ")
     count = p.match_all_count(main_text)
     check(count == len(got), f"match_all_count {count} != {len(got)}")
+    # Count mode: the kernel's candidate count (every candidate of this
+    # pattern on this text is a match) and the API's count route for an
+    # overlap-free pattern.
+    reset()
+    t = padded(main_text, DEV)
+    kcount = int(sc.count_device_staged(p.ct, (t, sc.stage_meta(p.ct, t)),
+                                        len(main_text), block=K))
+    check(kcount == len(got), f"count mode {kcount} != {len(got)}")
+    cp = rt.Pattern(COUNT_PATTERN, device=DEV)
+    check(cp.info.overlap_free and cp.fused, "count pattern route")
+    reset()
+    ccount = cp.match_all_count(main_text)
+    count_launches = launches()
+    check(count_launches == {"dfa_phase1": 0, "dfa_phase3": 0,
+                             "schain_fused": 1}, f"count: {count_launches}")
+    check(ccount == len(re_spans(COUNT_PATTERN, main_text))
+          == len(cp.match_all(main_text)), f"count pattern: {ccount}")
+    # A staged corpus on every entry point, shared by two patterns.
+    corpus = rt.stage(main_text, DEV)
+    for pat in (p, cp):
+        for op in ENTRY_POINTS:
+            check(getattr(pat, op)(corpus) == getattr(pat, op)(main_text),
+                  f"staged {op} differs")
+    check(corpus.uploads == 1, f"corpus uploads {corpus.uploads}")
     emit({"phase": "main_path", "pattern": MAIN_PATTERN.decode(),
           "n": len(main_text), "matches": len(got), "first_call_wall_s":
-          first_wall, "launches": launches, "equal_to_re": True,
-          "equal_to_cpu": True, "match_all_count": count})
+          first_wall, "launches": main_launches, "equal_to_re": True,
+          "equal_to_cpu": True, "match_all_count": count,
+          "count_mode_candidates": kcount,
+          "count_pattern": COUNT_PATTERN.decode(),
+          "count_pattern_count": ccount, "count_launches": count_launches,
+          "staged_entry_points_equal": True,
+          "staged_uploads": corpus.uploads})
+    del corpus
 
-    # 4. Tokenizer (run-partition branch) and the fast-forward route.
+    # 4. The split kernels on their paths, and the tokenizer.
+    wtext = rng.choice(np.frombuffer(b"abcdefghijklmnopqrstuvwxyz  ",
+                                     np.uint8), size=1 << 20).tobytes()
+    wp = rt.Pattern(b"|".join(words), device=DEV)
+    check(not wp.fused, "250-word alternation took the fused route")
+    reset()
+    wout = wp.match_all_arrays(wtext)
+    words_launches = launches()
+    longest_first = b"|".join(sorted(words, key=len, reverse=True))
+    check(spans_of(wout) == re_spans(longest_first, wtext),
+          "250-word alternation: spans differ from re")
+    off = rt.Pattern(MAIN_PATTERN, rt.Config(schain_fused="off"),
+                     device=DEV)
+    reset()
+    off_out = off.match_all_arrays(main_text)
+    off_launches = launches()
+    check(spans_of(off_out) == want, "split route: spans differ from re")
+    split_launches = {k: words_launches[k] + off_launches[k]
+                      for k in ("dfa_phase1", "dfa_phase3")}
+    check(all(v > 0 for v in split_launches.values())
+          and words_launches["schain_fused"] == 0
+          and off_launches["schain_fused"] == 0,
+          f"split paths: {words_launches} {off_launches}")
+    emit({"phase": "split_paths", "words_n": len(wtext),
+          "words_matches": len(wout[0]), "words_launches": words_launches,
+          "off_launches": off_launches, "equal_to_re": True})
+
     tok_text = main_text[:1 << 20]
-    dc.reset_launches()
-    tok = rt.Pattern(TOKENIZER).tokenize(tok_text)
-    tok_launches = dict(dc.LAUNCHES)
+    reset()
+    tok = rt.Pattern(TOKENIZER, device=DEV).tokenize(tok_text)
+    tok_launches = launches()
     tok_cpu = rt.Pattern(TOKENIZER, device="cpu").tokenize(tok_text)
     check(tok == tok_cpu, "tokenizer: card and CPU runs differ")
-    check(all(tok_launches[k] > 0 for k in tok_launches),
-          f"tokenizer skipped a kernel: {tok_launches}")
-    sp_text = sparse_text(10_000_000, seed=5)
-    ct = p.ct
-    v = pipeline.views(ct, padded(sp_text, "cuda"), K)
+    check(tok_launches["schain_fused"] > 0, f"tokenizer: {tok_launches}")
+    ct = off.ct
+    from rejit_tpu_torch.engine import pipeline
+    v = pipeline.views(ct, padded(sp_text, DEV), K)
     _, _, n_cand = pipeline.ff_phase12(ct, v, len(sp_text))
     cand_frac = int(n_cand) / v.nb
     check(cand_frac < 0.75, f"sparse text is not sparse: {cand_frac}")
     del v
-    dc.reset_launches()
-    ff_out = p.match_all_arrays(sp_text)
-    ff_launches = dict(dc.LAUNCHES)
+    reset()
+    ff_out = off.match_all_arrays(sp_text)
+    ff_launches = launches()
     check(ff_launches["dfa_phase3"] > 0, f"FF route: {ff_launches}")
-    ff_cpu = rt.Pattern(MAIN_PATTERN, device="cpu").match_all_arrays(sp_text)
-    check(all(np.array_equal(a, b) for a, b in zip(ff_out, ff_cpu)),
-          "FF route: card and CPU runs differ")
+    ff_fused = p.match_all_arrays(sp_text)
+    check(all(np.array_equal(a, b) for a, b in zip(ff_out, ff_fused)),
+          "FF route and fused route differ")
     check(spans_of(ff_out) == re_spans(MAIN_PATTERN, sp_text),
           "FF route: spans differ from re")
     emit({"phase": "tokenizer", "n": len(tok_text), "tokens": len(tok),
           "launches": tok_launches, "equal_to_cpu": True})
     emit({"phase": "ff_route", "n": len(sp_text), "candidate_blocks":
           cand_frac, "matches": len(ff_out[0]), "launches": ff_launches,
-          "equal_to_cpu": True, "equal_to_re": True})
+          "fused_tiles": sparse_skips["tiles"],
+          "fused_skipped_tiles": sparse_skips["skipped_tiles"],
+          "equal_to_fused": True, "equal_to_re": True})
 
     # 5. Times at 10 MB and 256 MiB.
-    t10, _ = time_size(rt, main_text, "10MB", reps=20, wall_reps=10)
-    emit({"phase": "times", **t10})
-    big = make_corpus(256 << 20, seed=2, needle=b"matching", density=0.01)
-    t256, big_out = time_size(rt, big, "256MiB", reps=5, wall_reps=5)
-    check(spans_of(big_out) == re_spans(MAIN_PATTERN, big),
-          "256 MiB spans differ from re")
-    emit({"phase": "times", **t256, "equal_to_re": True})
+    times = {}
+    if not quick:
+        t10, _ = time_size(rt, main_text, "10MB", reps=20, wall_reps=10)
+        emit({"phase": "times", **t10})
+        del main_text, sp_text
+        big = make_corpus(256 << 20, seed=2, needle=b"matching",
+                          density=0.01)
+        t256, big_out = time_size(rt, big, "256MiB", reps=5, wall_reps=5)
+        check(spans_of(big_out) == re_spans(MAIN_PATTERN, big),
+              "256 MiB spans differ from re")
+        emit({"phase": "times", **t256, "equal_to_re": True})
+        times = t10
 
     kernels = []
-    for name in ("dfa_phase1", "dfa_phase3"):
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+    for name in ("dfa_phase1", "dfa_phase3", "schain_fused"):
+        row = {
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": (main_launches[name] if name == "schain_fused"
+                         else split_launches[name]),
             "max_abs_err": errs[name], "equal_to_plain": errs[name] == 0,
-            "ms": t10[name + "_ms"], "plain_ms": t10[name + "_plain_ms"],
-            "bound_ms": t10[name + "_bound_ms"],
-            "bound_by": t10[name + "_bound_by"], "library_ms": None,
-        })
+            "ms": times.get(name + "_ms"),
+            "plain_ms": times.get(name + "_plain_ms"),
+            "bound_ms": times.get(name + "_bound_ms"),
+            "bound_by": times.get(name + "_bound_by"), "library_ms": None,
+        }
+        kernels.append(row)
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

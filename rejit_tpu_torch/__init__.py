@@ -4,12 +4,15 @@ The same public surface as rejit_tpu (MatchFull/MatchAnywhere/MatchFirst/
 MatchAll/MatchAllCount, tokenize, reusable compiled patterns, `Config`),
 with the same results (docs/SEMANTICS.md), running on an NVIDIA card:
 patterns compile ahead of time to dense DFA tables, and matching runs as
-PyTorch ops plus hand-written CUDA kernels for the byte-stepping phases.
+one fused hand-written CUDA kernel (or, for tables it does not take, PyTorch
+ops plus CUDA kernels for the byte-stepping phases); `stage(text)` keeps a
+corpus on the card across calls and patterns.
 Entry points take `device=` (None = the card; "cpu" runs every kernel's
 plain PyTorch version). This package imports neither JAX nor rejit_tpu.
 """
 
 from .api import (  # noqa: F401
+    DeviceCorpus,
     MatchAll,
     MatchAllCount,
     MatchAnywhere,
@@ -23,6 +26,7 @@ from .api import (  # noqa: F401
     match_anywhere,
     match_first,
     match_full,
+    stage,
 )
 from .config import Config  # noqa: F401
 from .errors import CompileError, RegexpError, RejitTpuError  # noqa: F401

@@ -4,11 +4,22 @@
 and matches many texts. Matches are half-open byte spans (start, end) with
 the semantics of docs/SEMANTICS.md: non-overlapping, leftmost-longest.
 
-Every pattern that compiles to a DFA runs on the DFA engine: the L-array
-pipeline (engine/pipeline.py) with its phases 1 and 3 as CUDA kernels on
-the card. Entry points run on the card unless the caller passes
-`device="cpu"`; with no CUDA device present they raise rather than carry
-on quietly on the CPU.
+Every pattern that compiles to a DFA runs on the DFA engine, by one of two
+routes (`Config.schain_fused`):
+- the fused route, kernels/schain_cuda.py: one schain_fused kernel call
+  matches the whole text from its bytes, and an overlap-free MatchAllCount
+  is a pure device count. 'auto' takes it on the card when the tables fit
+  the kernel (Q <= 256, C*Q <= 4096, fewer than 255 patterns); 'on' forces
+  it on either device (the plain version on the CPU) and raises
+  CompileError for tables that do not fit;
+- the split route, engine/pipeline.py: the L-array pipeline with its phases
+  1 and 3 as CUDA kernels on the card. 'auto' takes it for tables the
+  fused kernel does not take and on the CPU; 'off' forces it.
+
+`stage(text)` uploads a corpus once for repeated scans: every entry point
+takes the DeviceCorpus in place of a text. Entry points run on the card
+unless the caller passes `device="cpu"`; with no CUDA device present they
+raise rather than carry on quietly on the CPU.
 """
 from __future__ import annotations
 
@@ -23,10 +34,11 @@ from .compile.dfa import compile_patterns
 from .config import DEFAULT, Config
 from .engine import pipeline, select, spans
 from .errors import CompileError, StateBlowupError
+from .kernels import schain_cuda
 from .utils.stats import MatchStats, Timer
 
 Span = Tuple[int, int]
-TextLike = Union[str, bytes, bytearray, np.ndarray]
+TextLike = Union[str, bytes, bytearray, np.ndarray, "DeviceCorpus"]
 PatternLike = Union[str, bytes]
 DeviceLike = Union[None, str, torch.device]
 
@@ -34,6 +46,8 @@ _ENGINES = ("literal", "classrun", "classlit", "dfa", "oracle", "posnfa")
 
 
 def text_to_u8(text: TextLike) -> np.ndarray:
+    if isinstance(text, DeviceCorpus):
+        return text.host
     if isinstance(text, str):
         text = text.encode("utf-8")
     if isinstance(text, (bytes, bytearray)):
@@ -58,6 +72,70 @@ def resolve_device(device: DeviceLike) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _upload_padded(host: np.ndarray, grain: int,
+                   device: torch.device) -> torch.Tensor:
+    """The text zero-padded to a positive multiple of `grain`, on `device`."""
+    n = len(host)
+    pad = np.zeros(max(1, -(-n // grain)) * grain, dtype=np.uint8)
+    pad[:n] = host
+    return torch.from_numpy(pad).to(device)
+
+
+class DeviceCorpus:
+    """A corpus staged on a device for repeated scanning: uploaded once,
+    scanned by many patterns and calls.
+
+    Pass it anywhere a text is accepted. The padded device text is cached
+    by length (any multiple of a route's block serves it; a new padding is
+    made on the device, not uploaded again), and each pattern's staging
+    meta by its tables. The host bytes stay available for host paths.
+    """
+
+    def __init__(self, text: TextLike, device: DeviceLike = None):
+        self.host = text_to_u8(text)
+        self.n = len(self.host)
+        self.device = resolve_device(device)
+        self.uploads = 0      # host -> device copies made
+        self._padded = {}     # P -> padded uint8 device text
+        self._meta = {}       # (static tables, P) -> start state at P
+
+    def padded(self, grain: int) -> torch.Tensor:
+        """The device text padded to a positive multiple of `grain`."""
+        for P, t in self._padded.items():
+            if P % grain == 0:
+                return t
+        if not self._padded:
+            t = _upload_padded(self.host, grain, self.device)
+            self.uploads += 1
+        else:
+            src = next(iter(self._padded.values()))
+            t = torch.zeros(max(1, -(-self.n // grain)) * grain,
+                            dtype=torch.uint8, device=self.device)
+            t[:self.n] = src[:self.n]
+        self._padded[t.shape[0]] = t
+        return t
+
+    def staged_for(self, ct: pipeline.DeviceTables, grain: int):
+        """(padded text, start state at its end) for the fused route."""
+        text = self.padded(grain)
+        key = (ct.static, text.shape[0])
+        if key not in self._meta:
+            self._meta[key] = schain_cuda.stage_meta(ct, text)
+        return text, self._meta[key]
+
+
+def stage(text: TextLike, device: DeviceLike = None) -> DeviceCorpus:
+    """Stage a corpus on a device (None = the card) for repeated scanning."""
+    return DeviceCorpus(text, device)
+
+
+def _unwrap(text):
+    """(host uint8 array, DeviceCorpus | None)."""
+    if isinstance(text, DeviceCorpus):
+        return text.host, text
+    return text_to_u8(text), None
 
 
 class Pattern:
@@ -104,6 +182,8 @@ class Pattern:
                 "blowups are not ported to rejit_tpu_torch yet"
             ) from err
         self.ct = pipeline.device_tables(self.tables, device=self.device)
+        self.fused = self._use_schain_fused()
+        self.fused_block = config.fused_block or schain_cuda.DEFAULT_BLOCK
         self.last_stats: MatchStats = MatchStats()
 
     def _select_engine(self) -> str:
@@ -117,16 +197,51 @@ class Pattern:
             )
         raise CompileError(f"unknown engine {eng!r}")
 
+    def _use_schain_fused(self) -> bool:
+        """The fused route (kernels/schain_cuda.py) or the split pipeline."""
+        mode = self.config.schain_fused
+        if mode == "off":
+            return False
+        t = self.tables
+        fits = schain_cuda.fits(t.n_states, t.n_classes, t.n_patterns)
+        if mode == "on":
+            if not fits:
+                raise CompileError(
+                    f"tables too large for the fused kernel "
+                    f"(Q={t.n_states}, C={t.n_classes})"
+                )
+            return True
+        return fits and self.device.type == "cuda"
+
     # -- internals ----------------------------------------------------------
 
-    def _l_i_device(self, text: np.ndarray):
+    def _corpus(self, corpus: DeviceCorpus) -> DeviceCorpus:
+        if corpus.device != self.device:
+            raise ValueError(
+                f"corpus staged on {corpus.device}, pattern on {self.device}"
+            )
+        return corpus
+
+    def _staged(self, text: np.ndarray, corpus):
+        """(padded text, start state at its end) for the fused kernel."""
+        if corpus is not None:
+            return self._corpus(corpus).staged_for(self.ct, self.fused_block)
+        dev_text = _upload_padded(text, self.fused_block, self.device)
+        return dev_text, schain_cuda.stage_meta(self.ct, dev_text)
+
+    def _l_i_device(self, text: np.ndarray, corpus=None):
         """(L, I) tensors on the pattern's device, length P+1 (-1 past n)."""
         n = len(text)
+        if self.fused:
+            return schain_cuda.l_arrays_device_staged(
+                self.ct, self._staged(text, corpus), n,
+                block=self.fused_block, use_ff=self.config.use_ff,
+            )
         K = self.config.block_size
-        P = max(1, -(-n // K)) * K
-        pad = np.zeros(P, dtype=np.uint8)
-        pad[:n] = text
-        dev_text = torch.from_numpy(pad).to(self.device)
+        if corpus is None:
+            dev_text = _upload_padded(text, K, self.device)
+        else:
+            dev_text = self._corpus(corpus).padded(K)
         if self.config.use_ff:
             return pipeline.l_arrays_device_ff(
                 self.ct, dev_text, n, block=K, force=self.config.force_ff
@@ -149,30 +264,30 @@ class Pattern:
     # -- MatchType API ------------------------------------------------------
 
     def match_full(self, text: TextLike) -> bool:
-        t = text_to_u8(text)
+        t, corpus = _unwrap(text)
         with Timer() as t_all:
             with Timer() as t_dev:
-                L, _ = self._l_i_device(t)
+                L, _ = self._l_i_device(t, corpus)
                 got = int(L[0]) == len(t)
         self._record("match_full", len(t), int(got), t_dev.elapsed,
                      t_all.elapsed)
         return got
 
     def match_anywhere(self, text: TextLike) -> bool:
-        t = text_to_u8(text)
+        t, corpus = _unwrap(text)
         with Timer() as t_all:
             with Timer() as t_dev:
-                L, _ = self._l_i_device(t)
+                L, _ = self._l_i_device(t, corpus)
                 c = int(spans.candidate_count(L))
         self._record("match_anywhere", len(t), int(c > 0), t_dev.elapsed,
                      t_all.elapsed, n_cand=c)
         return c > 0
 
     def match_first(self, text: TextLike) -> Optional[Span]:
-        t = text_to_u8(text)
+        t, corpus = _unwrap(text)
         with Timer() as t_all:
             with Timer() as t_dev:
-                L, I = self._l_i_device(t)
+                L, I = self._l_i_device(t, corpus)
                 pos, end, _ = spans.candidates_host(L, I)
         self._record("match_first", len(t), int(len(pos) > 0),
                      t_dev.elapsed, t_all.elapsed, n_cand=len(pos))
@@ -188,10 +303,10 @@ class Pattern:
         self, text: TextLike
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """MatchAll as (starts, ends, pattern_ids) numpy arrays."""
-        t = text_to_u8(text)
+        t, corpus = _unwrap(text)
         with Timer() as t_all:
             with Timer() as t_dev:
-                L, I = self._l_i_device(t)
+                L, I = self._l_i_device(t, corpus)
                 n_cand = int(spans.candidate_count(L))
             if self.info.run_partition and n_cand * 8 > len(t):
                 # Dense run-partition results (tokenizers): selection is
@@ -213,15 +328,26 @@ class Pattern:
         return list(zip(starts.tolist(), ends.tolist(), pids.tolist()))
 
     def match_all_count(self, text: TextLike) -> int:
+        t, corpus = _unwrap(text)
         if self.info.run_partition:
             # Elementwise selection makes the count a device reduction
             # over the (L, I) tensors.
-            t = text_to_u8(text)
             with Timer() as t_all:
                 with Timer() as t_dev:
-                    L, I = self._l_i_device(t)
+                    L, I = self._l_i_device(t, corpus)
                 cnt = int(spans.partition_count(L, I))
             self._record("match_all_count", len(t), cnt, t_dev.elapsed,
+                         t_all.elapsed)
+            return cnt
+        if self.info.overlap_free and self.fused:
+            # Overlap-free: every candidate is a match, so the count is a
+            # pure device reduction and no L/I array is written.
+            with Timer() as t_all:
+                cnt = int(schain_cuda.count_device_staged(
+                    self.ct, self._staged(t, corpus), len(t),
+                    block=self.fused_block, use_ff=self.config.use_ff,
+                ))
+            self._record("match_all_count", len(t), cnt, t_all.elapsed,
                          t_all.elapsed)
             return cnt
         cnt = len(self.match_all_arrays(text)[0])

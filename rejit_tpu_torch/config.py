@@ -7,15 +7,23 @@ overrides and no global mutable state (SURVEY.md §5.6).
 
 The PyTorch port keeps the JAX package's `Config` field for field, so a
 user's `Config` means the same thing in both. The port reads `engine`
-(only None or 'dfa' are served so far), `ignore_case`, `block_size`,
-`use_ff`, `force_ff`, `max_nfa_states` and `max_dfa_states`. Every other
-field is accepted and has no effect in the port yet: the TPU-only knobs
-(`pallas`, `schain`, `schain_fused`, `schain_rolled`, `fused_block`,
-`fused_chl`, `interpret`, `matmul`, `bitmask`) and those of engines and
-paths that later port slices bring (`selection`, `oracle_fallback`,
-`posnfa`, `max_pos_states`, `posnfa_block`, `posnfa_chunk_bytes`,
-`disk_cache`, `first_window`, `device_select_threshold`, `print_tree`,
-`print_tables`, `mesh_axis`).
+(only None or 'dfa' are served so far), `ignore_case`, `block_size` (the
+split pipeline's K), `use_ff`, `force_ff`, `max_nfa_states`,
+`max_dfa_states`, `schain_fused` and `fused_block`:
+- `schain_fused` picks the DFA route: 'auto' takes the fused CUDA kernel
+  (kernels/schain_cuda.py) on a CUDA device when the tables fit it
+  (Q <= 256, C*Q <= 4096, fewer than 255 patterns) and the split pipeline
+  otherwise or on the CPU; 'on' forces the fused route on either device
+  (its plain version on the CPU) and raises CompileError for tables that
+  do not fit; 'off' forces the split pipeline;
+- `fused_block` is the fused kernel's K (None: schain_cuda.DEFAULT_BLOCK).
+Every other field is accepted and has no effect in the port yet: the
+TPU-only knobs (`pallas`, `schain`, `schain_rolled`, `fused_chl`,
+`interpret`, `matmul`, `bitmask`) and those of engines and paths that later
+port slices bring (`selection`, `oracle_fallback`, `posnfa`,
+`max_pos_states`, `posnfa_block`, `posnfa_chunk_bytes`, `disk_cache`,
+`first_window`, `device_select_threshold`, `print_tree`, `print_tables`,
+`mesh_axis`).
 """
 from __future__ import annotations
 

@@ -30,6 +30,7 @@ import torch
 from ..compile.dfa import DFATables, ctx_of_byte
 from ..kernels import dfa_cuda
 from ..kernels.dfa_cuda import Summary
+from . import schain
 
 DEFAULT_BLOCK = 32
 
@@ -46,6 +47,12 @@ class DeviceTables:
     n_classes: int
     dead: int
     ff_class: torch.Tensor      # (C,) int32: fast-forward candidate classes
+    n_patterns: int
+    # The fused route (kernels/schain_cuda.py):
+    static: tuple               # schain.static_tables form (hashable key)
+    plan: schain.FusedPlan
+    start_of_byte: torch.Tensor  # (256,) int32: start state after byte b
+    byte_flags: torch.Tensor    # (256,) int32: schain.SILENT | UNIFORM bits
 
     @property
     def n_states(self) -> int:
@@ -69,7 +76,8 @@ def device_tables_from_arrays(
     *, device,
 ) -> DeviceTables:
     """DeviceTables from plain numpy arrays (for example the fields of a
-    DFATables from either package), placed on `device`."""
+    DFATables from either package), placed on `device`, with the fused
+    route's static tables and plan."""
     next_ = np.asarray(next)
     accept = np.asarray(accept)
     if n_patterns >= 255:
@@ -78,6 +86,10 @@ def device_tables_from_arrays(
         next_.astype(np.int32) * 256 + (accept.astype(np.int32) + 1)
     ).reshape(-1)
     ctx = np.array([ctx_of_byte(b) for b in range(256)], dtype=np.int32)
+    st = schain.static_tables(
+        class_of, next_, accept, start_states, accept_eot
+    )
+    fplan = schain.plan(st)
 
     def put(a):
         return torch.as_tensor(
@@ -93,6 +105,11 @@ def device_tables_from_arrays(
         n_classes=int(next_.shape[1]),
         dead=int(dead),
         ff_class=put(ff_class_mask(next_, accept, start_states, dead)),
+        n_patterns=int(n_patterns),
+        static=st,
+        plan=fplan,
+        start_of_byte=put(np.asarray(start_states)[ctx]),
+        byte_flags=put(schain.byte_flags(fplan)),
     )
 
 
@@ -224,10 +241,10 @@ def views(ct: DeviceTables, text: torch.Tensor, block: int) -> BlockViews:
     )
 
 
-def _finish(ct: DeviceTables, v: BlockViews, L, I, n: int):
-    """Append boundary P (from the bare EOT seed) and set boundaries > n
-    to -1: (L, I) of length P+1."""
-    eot = ct.accept_eot[v.start_eot.long()]
+def finish(ct: DeviceTables, start_eot: torch.Tensor, L, I, n: int):
+    """Append boundary P (from the bare EOT seed at its start state
+    `start_eot`) and set boundaries > n to -1: (L, I) of length P+1."""
+    eot = ct.accept_eot[start_eot.long()]
     L_P = torch.where(eot >= 0, n, -1).to(torch.int32)
     L = torch.cat([L, L_P.view(1)])
     I = torch.cat([I, eot.view(1)])
@@ -248,7 +265,7 @@ def l_arrays_device(
     summaries = phase1_summaries(ct, v.cls_kb, n)
     suf = suffix_scan(summaries, eot_seed(ct, n))
     L, I = phase3_emit(ct, suf, v.cls_kb, v.startsb, n)
-    return _finish(ct, v, L, I, n)
+    return finish(ct, v.start_eot, L, I, n)
 
 
 # ---------------------------------------------------------------------------
@@ -291,7 +308,7 @@ def ff_phase3(ct: DeviceTables, v: BlockViews, n: int, suf: Summary,
         )
         L2[idx] = L_c.view(-1, K)
         I2[idx] = I_c.view(-1, K)
-    return _finish(ct, v, L2.view(-1), I2.view(-1), n)
+    return finish(ct, v.start_eot, L2.view(-1), I2.view(-1), n)
 
 
 def l_arrays_device_ff(
@@ -308,5 +325,5 @@ def l_arrays_device_ff(
     suf, cand_block, n_cand = ff_phase12(ct, v, n)
     if not force and int(n_cand) >= v.nb * (1.0 - min_skip_fraction):
         L, I = phase3_emit(ct, suf, v.cls_kb, v.startsb, n)
-        return _finish(ct, v, L, I, n)
+        return finish(ct, v.start_eot, L, I, n)
     return ff_phase3(ct, v, n, suf, cand_block)

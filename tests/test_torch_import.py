@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import rejit_tpu_torch
-from rejit_tpu_torch.kernels import dfa_cuda
+from rejit_tpu_torch.kernels import dfa_cuda, schain_cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -27,6 +27,8 @@ def test_import_loads_no_jax_and_no_rejit_tpu():
         "import sys\n"
         "import rejit_tpu_torch\n"
         "import rejit_tpu_torch.kernels.build\n"
+        "import rejit_tpu_torch.kernels.schain_cuda\n"
+        "import rejit_tpu_torch.engine.schain\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib') "
         "or m == 'rejit_tpu' or m.startswith('rejit_tpu.'))\n"
@@ -114,3 +116,28 @@ def test_plain_runs_on_cpu_count_no_launch():
     assert L.shape == (32,) and I.shape == (32,)
     assert dfa_cuda.LAUNCHES == {"dfa_phase1": 0, "dfa_phase3": 0}
     assert np.all(L.numpy()[:10] >= -1)
+
+
+def test_fused_wrapper_checks_and_plain_run_counts_no_launch():
+    ct = rejit_tpu_torch.Pattern(rb"\w+ing", device="cpu").ct
+    text = torch.zeros(64, dtype=torch.uint8)
+    seed = schain_cuda.solo_seed(ct, 60)
+    with pytest.raises(TypeError):
+        schain_cuda.schain_fused(ct, text.int(), 60, seed)
+    with pytest.raises(ValueError):
+        schain_cuda.schain_fused(ct, text[:63], 60, seed)
+    with pytest.raises(ValueError):
+        schain_cuda.schain_fused(ct, text, 65, seed)
+    with pytest.raises(ValueError):
+        schain_cuda.schain_fused(ct, text, 60, seed[:2].contiguous())
+    with pytest.raises(ValueError):
+        schain_cuda.schain_fused(ct, text, 60, seed.long())
+    with pytest.raises(ValueError):
+        schain_cuda.schain_fused(ct, text, 60, seed, mode="spans")
+    schain_cuda.reset_launches()
+    for mode in ("l", "li", "count"):
+        out, I, G = schain_cuda.schain_fused(ct, text, 60, seed, mode=mode)
+        assert G.shape == (3, ct.n_states)
+        assert out.shape == (() if mode == "count" else (64,))
+        assert (I is None) == (mode != "li")
+    assert schain_cuda.LAUNCHES == {"schain_fused": 0}
