@@ -18,23 +18,40 @@ per source, all started together), then:
    seed (G included), at n = P, P-3, a tile edge, 1 and 0, for 8 pattern
    sets on dense and sparse texts, at fused blocks K = 8, 24 and 64 beside
    the default 32, and at the main path's shapes; the sparse texts must
-   take the skip;
+   take the skip; literal_spans at caps 0, 2, 4 and 16 for sets of 1, 3, 9
+   and 15 literals of 1 to 128 bytes at n = P, P-3, a row edge, a block
+   edge, 1 and 0, and for the 12 keywords on the main text; scan1d in both
+   directions on random, monotone and constant int32 around its tile size
+   and at the main path's length;
 3. runs the main path, `Pattern(r"\\b\\w+ing\\b").match_all_arrays(text)`
    on the 10 MB config-3 corpus, with the launch counters set to 0 just
    before and read just after: it must launch schain_fused and neither
    split kernel, and give the spans of Python `re`, of the port's CPU run
    and of match_all_count; the count mode (count_device_staged, and
-   match_all_count of an overlap-free pattern) and a staged corpus
-   (`stage`) on every entry point are checked on the same text;
+   match_all_count of an overlap-free pattern on the DFA engine) and a
+   staged corpus (`stage`) on every entry point are checked on the same
+   text;
 4. drives the split kernels on their paths, each with its own counts: a
    250-word alternation (tables too large for the fused kernel),
    `Config(schain_fused='off')` on the main text and on a sparse text (the
    fast-forward route, dfa_phase3 with posbase); and the 3-pattern
    tokenizer on the fused route; each against `re` or the CPU run;
-5. times the kernels, their plain versions, the split route's stages and
-   the entry points' walls (host bytes and staged corpus) with CUDA events
-   and the host clock, on the 10 MB text and on a 256 MiB text from the
-   same generator.
+5. runs config 1 (`packet` over the 10 MiB `make_corpus(seed=0,
+   needle=b"packet", density=0.002)`, the program bench.py times): the
+   literal engine's bitmask route, no kernel launched, spans equal to
+   `re`, the other entry points and a staged corpus agreeing;
+6. runs the literal_spans path: 12 overlap-free keywords on the main text,
+   which must launch the kernel again after the cap grows and give the
+   spans of `re`, and the same words as a 12-pattern list, whose tokens
+   must equal the CPU run's;
+7. runs the scan1d paths, `\\b\\w{3,50}\\b` (classrun, one launch a call)
+   and `\\b[a-z]{2,60}ing\\b` (classlit, two), each against the port's DFA
+   route and `re`;
+8. times the kernels, their plain versions, the library calls, the split
+   route's stages and the entry points' walls (host bytes and staged
+   corpus) with CUDA events and the host clock, on the 10 MB text and on
+   a 256 MiB text from the same generator, and config 1 at 10 MiB and
+   256 MiB.
 
 Every result is a JSON line; the `{"kernels": [...]}` line and the card's
 nvidia-smi line come just before the last line, which is
@@ -66,23 +83,44 @@ ALU_OPS_PER_STEP = 7
 MAIN_PATTERN = rb"\b\w+ing\b"
 TOKENIZER = [rb"\w+", rb"\s+", rb"[^\w\s]+"]
 COUNT_PATTERN = rb"matching"   # overlap-free: MatchAllCount in count mode
+# BASELINE config 1, the program bench.py times: one literal over
+# make_corpus(size, seed=0, needle=b"packet", density=0.002).
+CONFIG1_PATTERN = rb"packet"
+CONFIG1_SIZE = 10 * 1024 * 1024
+# Twelve overlap-free keywords (more than the bitmask route's 8 literals):
+# the literal_spans kernel's path, as one alternation and as a tokenizer.
+KEYWORDS = (b"packet", b"stream", b"vector", b"filter", b"kernel", b"device",
+            b"branch", b"offset", b"brown", b"state", b"gamma", b"delta")
+# The elementwise engines' paths on the card (scan1d launches per call).
+B3_PATTERNS = {"classrun": (rb"\b\w{3,50}\b", 1),
+               "classlit": (rb"\b[a-z]{2,60}ing\b", 2)}
 K = 32
 SOURCES = {
     "dfa_phase1": "rejit_tpu_torch/kernels/csrc/dfa_phases.cu",
     "dfa_phase3": "rejit_tpu_torch/kernels/csrc/dfa_phases.cu",
     "schain_fused": "rejit_tpu_torch/kernels/csrc/schain_fused.cu",
+    "literal_spans": "rejit_tpu_torch/kernels/csrc/literal_spans.cu",
+    "scan1d": "rejit_tpu_torch/kernels/csrc/scan1d.cu",
 }
 REPLACES = {
     "dfa_phase1": "rejit_tpu/kernels/dfa_pallas.py:95",
     "dfa_phase3": "rejit_tpu/kernels/dfa_pallas.py:175",
     "schain_fused": "rejit_tpu/kernels/schain_pallas.py:1070",
+    "literal_spans": "rejit_tpu/kernels/extract_pallas.py:118",
+    "scan1d": "rejit_tpu/kernels/scan1d.py:94",
 }
 DEV = "cuda"
 ENTRY_POINTS = ("match_full", "match_anywhere", "match_first", "match_all",
                 "tokenize", "match_all_count")
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line also carries the seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -148,6 +186,12 @@ def padded(text: bytes, dev, grain: int = K) -> torch.Tensor:
     return torch.from_numpy(pad).to(dev)
 
 
+def dfa_tables(rt, pats):
+    """The pattern's DFA tables on the card (the DFA engine forced: literal
+    and class-run patterns otherwise take engines without tables)."""
+    return rt.Pattern(pats, rt.Config(engine="dfa"), device=DEV).ct
+
+
 def split_kernels_vs_plain(rt, pats, text: bytes, dev, seed: int) -> dict:
     """Max |kernel - plain| of dfa_phase1/3 on the same CUDA tensors, and
     whether the kernels kept the table in shared memory."""
@@ -155,7 +199,7 @@ def split_kernels_vs_plain(rt, pats, text: bytes, dev, seed: int) -> dict:
     from rejit_tpu_torch.kernels import dfa_cuda as dc
 
     n = len(text)
-    ct = rt.Pattern(pats, device=dev).ct
+    ct = dfa_tables(rt, pats)
     v = pipeline.views(ct, padded(text, dev), K)
     summ = pipeline.phase1_summaries(ct, v.cls_kb, n)
     suf = pipeline.suffix_scan(summ, pipeline.eot_seed(ct, n))
@@ -266,7 +310,7 @@ def time_size(rt, text: bytes, label: str, reps: int,
     n = len(text)
     p = rt.Pattern(MAIN_PATTERN, device=DEV)
     q = rt.Pattern(MAIN_PATTERN, rt.Config(schain_fused="off"), device=DEV)
-    cp = rt.Pattern(COUNT_PATTERN, device=DEV)
+    cp = rt.Pattern(COUNT_PATTERN, rt.Config(engine="dfa"), device=DEV)
     check(p.fused and not q.fused and cp.fused, "routes")
     ct = p.ct
     C, Q = ct.n_classes, ct.n_states
@@ -395,6 +439,198 @@ def sparse_text(size: int, seed: int) -> bytes:
     return buf.tobytes()
 
 
+def literal_sets(rng) -> list:
+    """(lits, pids) sets of 1, 3, 9 and 15 distinct literals, lengths 1 to
+    128, over the alphabet of `literal_text`, pids below 16."""
+    alphabet = np.frombuffer(b"ab c", np.uint8)
+    lengths = (1, 2, 3, 5, 8, 17, 31, 64, 100, 127, 128)
+    sets = []
+    for k in (1, 3, 9, 15):
+        lits = {b"a"}
+        if k > 1:
+            lits.add(rng.choice(alphabet, size=128).tobytes())
+        while len(lits) < k:
+            lits.add(rng.choice(alphabet, size=int(rng.choice(lengths)))
+                     .tobytes())
+        lits = tuple(sorted(lits))
+        sets.append((lits, tuple(int(p) for p in
+                                 rng.integers(0, 16, size=len(lits)))))
+    return sets
+
+
+def literal_text(rng, sets, size: int) -> np.ndarray:
+    """Random bytes over the literals' alphabet with every literal planted
+    many times, so long ones hit and short ones crowd rows past cap 16."""
+    text = rng.choice(np.frombuffer(b"ab c", np.uint8), size=size)
+    for lits, _ in sets:
+        for lit in lits:
+            for at in rng.choice(size - 200, size=40, replace=False):
+                text[at:at + len(lit)] = np.frombuffer(lit, np.uint8)
+    return text
+
+
+def literal_spans_vs_plain(xc, text: np.ndarray, sets) -> dict:
+    """Max |literal_spans - literal_spans_plain| (keys and counts) on the
+    same CUDA rows, at caps 0, 2, 4 and 16 and n at P, P-3, a row edge, a
+    block edge (32 rows), 1 and 0."""
+    rows = torch.from_numpy(xc.pad_rows(text, len(text), xc.CHL)).to(DEV)
+    P = rows.numel()
+    err, calls, max_count = 0, 0, 0
+    for lits, pids in sets:
+        for cap in (0, 2, 4, 16):
+            for n in (P, P - 3, 777 * xc.CHL, 13 * 32 * xc.CHL, 1, 0):
+                got = xc.literal_spans(rows, n, lits=lits, pids=pids,
+                                       cap=cap)
+                want = xc.literal_spans_plain(rows, n, lits=lits, pids=pids,
+                                              cap=cap)
+                err = max(err, max_abs_err(got, want))
+                max_count = max(max_count, int(want[1].max()))
+                calls += 1
+    torch.cuda.synchronize()
+    return {"max_abs_err": err, "calls": calls, "P": P,
+            "max_row_count": max_count}
+
+
+def scan_vs_plain(sc, rng, sizes) -> dict:
+    """Max |scan1d - plain| in both directions on random (full int32
+    range), increasing, decreasing and constant inputs of each size."""
+    err, calls = 0, 0
+    for P in sizes:
+        for kind in ("random", "increasing", "decreasing", "constant"):
+            if kind == "constant":
+                x = np.full(P, -7, dtype=np.int32)
+            else:
+                x = rng.integers(-2**31, 2**31, size=P, dtype=np.int64)
+                x = x.astype(np.int32)
+                if kind != "random":
+                    x = np.sort(x)[::-1 if kind == "decreasing" else 1].copy()
+            xd = torch.from_numpy(x).to(DEV)
+            err = max(err, max_abs_err(sc.rcummin(xd), sc.rcummin_plain(xd)),
+                      max_abs_err(sc.cummax(xd), sc.cummax_plain(xd)))
+            calls += 2
+    torch.cuda.synchronize()
+    return {"max_abs_err": err, "calls": calls, "sizes": list(sizes)}
+
+
+def literal_compares(rows: torch.Tensor, n: int, lits) -> int:
+    """The byte compares literal_spans does on these rows: at each position
+    below n - len + 1 not yet claimed, each literal in claim order costs one
+    compare plus one per matched prefix byte (a full hit len compares, and
+    it claims the position)."""
+    flat = rows.reshape(-1)
+    P = flat.numel()
+    ext = torch.cat([flat, torch.zeros(max(len(l) for l in lits),
+                                       dtype=torch.uint8, device=flat.device)])
+    alive = torch.ones(P, dtype=torch.bool, device=flat.device)
+    total = 0
+    for lit in lits:
+        m = alive.clone()
+        m[max(0, n - len(lit) + 1):] = False
+        total += int(m.sum())
+        for j, b in enumerate(lit):
+            m &= ext[j:j + P] == b
+            if j + 1 < len(lit):
+                total += int(m.sum())
+        alive &= ~m
+    return total
+
+
+def time_literal_engines(rt, text: bytes, label: str, reps: int,
+                         walls: bool) -> dict:
+    """literal_spans on the keyword path's rows and scan1d on an int32
+    array of the text's length: kernel, plain and library times (CUDA
+    events) beside their bounds; with `walls`, the host-clock walls of the
+    B4 and B3 paths' match_all_arrays."""
+    from rejit_tpu_torch.kernels import extract_cuda as xc
+    from rejit_tpu_torch.kernels import literal as lk
+    from rejit_tpu_torch.kernels import scan_cuda as sc
+
+    n = len(text)
+    host = np.frombuffer(text, np.uint8)
+    plain_reps = max(1, reps // 4)
+    kp = rt.Pattern(b"|".join(KEYWORDS), device=DEV)
+    lits, pids = kp.info.literals, kp.info.literal_pids
+    rows = torch.from_numpy(xc.pad_rows(host, n, 6)).to(DEV)
+    _, cnt = xc.literal_spans(rows, n, lits=lits, pids=pids, cap=0)
+    cap = 4
+    while cap < int(cnt.max()):
+        cap *= 2
+    Rows = rows.shape[0]
+    order = [lits[i] for i in lk.claim_order(lits, pids)]
+    compares = literal_compares(rows, n, order)
+    tb = (rows.numel() + Rows * (cap + 1) * 4) / HBM_BYTES_PER_S
+    to = compares / PEAK_LANE_OPS_PER_S
+    res = {
+        "label": label, "n": n, "rows": Rows, "cap": cap,
+        "literal_spans_compares": compares,
+        "literal_spans_ms": time_ms(lambda: xc.literal_spans(
+            rows, n, lits=lits, pids=pids, cap=cap), reps),
+        "literal_spans_count_only_ms": time_ms(lambda: xc.literal_spans(
+            rows, n, lits=lits, pids=pids, cap=0), reps),
+        "literal_spans_plain_ms": time_ms(lambda: xc.literal_spans_plain(
+            rows, n, lits=lits, pids=pids, cap=cap), plain_reps, 1),
+        "literal_spans_bound_ms": max(tb, to) * 1e3,
+        "literal_spans_bound_by": "bytes" if tb >= to else "operations",
+    }
+    del rows
+    x = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32,
+                      device=DEV)
+    res.update({
+        "scan1d_ms": time_ms(lambda: sc.rcummin(x), reps),
+        "scan1d_cummax_ms": time_ms(lambda: sc.cummax(x), reps),
+        "scan1d_plain_ms": time_ms(lambda: sc.rcummin_plain(x), plain_reps,
+                                   1),
+        "scan1d_cummax_plain_ms": time_ms(lambda: sc.cummax_plain(x),
+                                          plain_reps, 1),
+        # One PyTorch call of the same work: the forward torch.cummin (no
+        # reverse form exists). Slow on the card, so timed as the plain
+        # versions are.
+        "scan1d_library_ms": time_ms(lambda: torch.cummin(x, 0), plain_reps,
+                                     1),
+        "scan1d_bound_ms": 8 * n / HBM_BYTES_PER_S * 1e3,
+        "scan1d_bound_by": "bytes",
+    })
+    del x
+    if walls:
+        engines = {"literal_spans_path": kp}
+        for name, (pat, _) in B3_PATTERNS.items():
+            engines[name + "_path"] = rt.Pattern(pat, device=DEV)
+        for k, p in engines.items():
+            w = wall_s(lambda: p.match_all_arrays(text), reps // 2)
+            res[k + "_wall"] = w
+            res[k + "_GBps"] = n / w["median_s"] / 1e9
+            p.match_all_arrays(text)
+            res[k + "_device_s"] = p.last_stats.device_time_s
+            res[k + "_select_s"] = p.last_stats.select_time_s
+    return res
+
+
+def time_config1(rt, text: bytes, label: str, reps: int) -> dict:
+    """Config 1's entry-point walls, from host bytes and from a staged
+    corpus, with the device / host split of match_all_arrays."""
+    n = len(text)
+    p = rt.Pattern(CONFIG1_PATTERN, device=DEV)
+    corpus = rt.stage(text, DEV)
+    res = {"label": label, "n": n}
+    walls = {
+        "match_all": wall_s(lambda: p.match_all_arrays(text), reps),
+        "match_all_staged": wall_s(lambda: p.match_all_arrays(corpus), reps),
+        "match_all_count": wall_s(lambda: p.match_all_count(text), reps),
+        "match_all_count_staged": wall_s(lambda: p.match_all_count(corpus),
+                                         reps),
+        "match_first_staged": wall_s(lambda: p.match_first(corpus), reps),
+    }
+    for k, w in walls.items():
+        res[k + "_wall"] = w
+        res[k + "_GBps"] = n / w["median_s"] / 1e9
+    for key, src in (("", text), ("staged_", corpus)):
+        p.match_all_arrays(src)
+        res[key + "match_all_device_s"] = p.last_stats.device_time_s
+        res[key + "match_all_select_s"] = p.last_stats.select_time_s
+    res["matches"] = p.last_stats.n_matches
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device available", file=sys.stderr)
@@ -404,16 +640,25 @@ def main() -> int:
     import rejit_tpu_torch as rt
     from rejit_tpu_torch.kernels import build
     from rejit_tpu_torch.kernels import dfa_cuda as dc
+    from rejit_tpu_torch.kernels import extract_cuda as xc
+    from rejit_tpu_torch.kernels import scan_cuda as scn
     from rejit_tpu_torch.kernels import schain_cuda as sc
     from rejit_tpu_torch.utils.corpus import make_corpus
 
+    counters = (dc, sc, xc, scn)
+
     def launches():
-        return {**dc.LAUNCHES, **sc.LAUNCHES}
+        torch.cuda.synchronize()
+        return {k: v for m in counters for k, v in m.LAUNCHES.items()}
 
     def reset():
         torch.cuda.synchronize()
-        dc.reset_launches()
-        sc.reset_launches()
+        for m in counters:
+            m.reset_launches()
+
+    def only(got: dict, **want) -> bool:
+        """Every counter is 0 but those named, which have these counts."""
+        return all(v == want.get(k, 0) for k, v in got.items())
 
     # 1. The card and the build.
     card = nvidia_smi("name,power.limit")
@@ -472,7 +717,7 @@ def main() -> int:
     sparse_small = sparse_text(200_000, seed=11)
     skipped_total = 0
     for j, (label, pats, chars) in enumerate(fcases):
-        ct = rt.Pattern(pats, device=DEV).ct
+        ct = dfa_tables(rt, pats)
         for kind in ("dense", "sparse"):
             text = (rng.choice(chars, size=200_000).tobytes()
                     if kind == "dense" else sparse_small)
@@ -486,7 +731,7 @@ def main() -> int:
             skipped_total += e["skipped_tiles"]
     # Other fused blocks K (Config.fused_block), a power of two or not.
     for pats in (MAIN_PATTERN, TOKENIZER):
-        ct = rt.Pattern(pats, device=DEV).ct
+        ct = dfa_tables(rt, pats)
         for kb in (8, 24, 64):
             t = padded(sparse_small[:150_000] + main_text[:50_000], DEV, kb)
             P = t.shape[0]
@@ -494,7 +739,7 @@ def main() -> int:
             emit({"phase": "fused_vs_plain", "patterns": str(pats),
                   "text": "mixed", "block": kb, "P": P, **e})
             errs["schain_fused"] = max(errs["schain_fused"], e["max_abs_err"])
-    ct = rt.Pattern(MAIN_PATTERN, device=DEV).ct
+    ct = dfa_tables(rt, MAIN_PATTERN)
     for kind, text in (("main", main_text), ("sparse", sp_text)):
         t = padded(text, DEV)
         P = t.shape[0]
@@ -505,7 +750,29 @@ def main() -> int:
         errs["schain_fused"] = max(errs["schain_fused"], e["max_abs_err"])
         if kind == "sparse":
             sparse_skips = e
-    check(errs == {"dfa_phase1": 0, "dfa_phase3": 0, "schain_fused": 0},
+    # literal_spans: 4 literal sets x 4 caps x 6 n; and at the keyword
+    # path's shapes on the main text.
+    sets = literal_sets(rng)
+    e = literal_spans_vs_plain(xc, literal_text(rng, sets, 300_000), sets)
+    emit({"phase": "literal_spans_vs_plain", "sets": [
+        {"literals": len(l), "lengths": sorted({len(x) for x in l}),
+         "pids": sorted(set(q))} for l, q in sets], **e})
+    check(e["max_row_count"] > 16, "no row count past cap 16")
+    errs["literal_spans"] = e["max_abs_err"]
+    kw_lits = rt.Pattern(b"|".join(KEYWORDS), device=DEV).info.literals
+    e = literal_spans_vs_plain(
+        xc, np.frombuffer(main_text, np.uint8),
+        [(kw_lits, tuple(range(12))), (kw_lits, (0,) * 12)])
+    emit({"phase": "literal_spans_vs_plain", "sets": "keywords on the main "
+          "text", **e})
+    errs["literal_spans"] = max(errs["literal_spans"], e["max_abs_err"])
+    # scan1d: both directions at lengths around its 4096-element tile and
+    # at the main path's length.
+    e = scan_vs_plain(scn, rng, (1, 31, 4095, 4096, 4097, 1_000_003,
+                                 len(main_text)))
+    emit({"phase": "scan1d_vs_plain", **e})
+    errs["scan1d"] = e["max_abs_err"]
+    check(all(v == 0 for v in errs.values()),
           f"kernels differ from their plain versions: {errs}")
     check(skipped_total > 0 and sparse_skips["skipped_tiles"] > 0,
           "the FF tile skip was never taken")
@@ -542,13 +809,14 @@ def main() -> int:
     kcount = int(sc.count_device_staged(p.ct, (t, sc.stage_meta(p.ct, t)),
                                         len(main_text), block=K))
     check(kcount == len(got), f"count mode {kcount} != {len(got)}")
-    cp = rt.Pattern(COUNT_PATTERN, device=DEV)
+    # `matching` alone takes the literal engine; the DFA engine is forced
+    # here to hold the fused count route.
+    cp = rt.Pattern(COUNT_PATTERN, rt.Config(engine="dfa"), device=DEV)
     check(cp.info.overlap_free and cp.fused, "count pattern route")
     reset()
     ccount = cp.match_all_count(main_text)
     count_launches = launches()
-    check(count_launches == {"dfa_phase1": 0, "dfa_phase3": 0,
-                             "schain_fused": 1}, f"count: {count_launches}")
+    check(only(count_launches, schain_fused=1), f"count: {count_launches}")
     check(ccount == len(re_spans(COUNT_PATTERN, main_text))
           == len(cp.match_all(main_text)), f"count pattern: {ccount}")
     # A staged corpus on every entry point, shared by two patterns.
@@ -627,32 +895,144 @@ def main() -> int:
           "fused_skipped_tiles": sparse_skips["skipped_tiles"],
           "equal_to_fused": True, "equal_to_re": True})
 
-    # 5. Times at 10 MB and 256 MiB.
+    # 5. Config 1, the bench.py program: one literal on the literal
+    # engine's bitmask route (torch ops, no kernel of its own).
+    c1_text = make_corpus(CONFIG1_SIZE, seed=0, needle=b"packet",
+                          density=0.002)
+    c1 = rt.Pattern(CONFIG1_PATTERN, device=DEV)
+    check(c1.engine == "literal" and c1._bitmask_ok() and c1.ct is None,
+          "config 1 route")
+    reset()
+    c1_out = c1.match_all_arrays(c1_text)
+    c1_launches = launches()
+    check(only(c1_launches), f"config 1 launched kernels: {c1_launches}")
+    c1_want = re_spans(CONFIG1_PATTERN, c1_text)
+    check(spans_of(c1_out) == c1_want, "config 1: spans differ from re")
+    check(c1.last_stats.engine == "literal", "config 1 stats")
+    check(c1.match_all_count(c1_text) == len(c1_want), "config 1 count")
+    check(c1.match_first(c1_text) == c1_want[0], "config 1 match_first")
+    check(c1.match_anywhere(c1_text) and not c1.match_full(c1_text),
+          "config 1 match_anywhere / match_full")
+    corpus = rt.stage(c1_text, DEV)
+    for op in ENTRY_POINTS:
+        check(getattr(c1, op)(corpus) == getattr(c1, op)(c1_text),
+              f"config 1: staged {op} differs")
+    check(corpus.uploads == 1, f"config 1 corpus uploads {corpus.uploads}")
+    emit({"phase": "config1_path", "pattern": CONFIG1_PATTERN.decode(),
+          "n": len(c1_text), "matches": len(c1_want),
+          "launches": c1_launches, "equal_to_re": True,
+          "staged_entry_points_equal": True})
+    del corpus
+
+    # 6. The literal_spans path: 12 overlap-free keywords (past the bitmask
+    # route's 8) on the config-3 text, as an alternation and as a list.
+    kw = b"|".join(KEYWORDS)
+    kp = rt.Pattern(kw, device=DEV)
+    check(kp.engine == "literal" and kp.info.overlap_free
+          and not kp._bitmask_ok() and kp._spans_kernel_ok(None),
+          "keyword route")
+    reset()
+    kw_out = kp.match_all_arrays(main_text)
+    kw_launches = launches()
+    # The first call (cap 4) counts a row past the cap, so the call runs
+    # again with a larger cap.
+    check(only(kw_launches, literal_spans=kw_launches["literal_spans"])
+          and kw_launches["literal_spans"] >= 2, f"keywords: {kw_launches}")
+    kw_want = re_spans(kw, main_text)
+    check(spans_of(kw_out) == kw_want, "keywords: spans differ from re")
+    check(kp.match_all_count(main_text) == len(kw_want), "keywords count")
+    tp = rt.Pattern(list(KEYWORDS), device=DEV)
+    reset()
+    kw_tok = tp.tokenize(main_text)
+    tok_kw_launches = launches()
+    check(tok_kw_launches["literal_spans"] >= 1
+          and only(tok_kw_launches,
+                   literal_spans=tok_kw_launches["literal_spans"]),
+          f"keyword list: {tok_kw_launches}")
+    check(kw_tok == rt.Pattern(list(KEYWORDS), device="cpu").tokenize(
+        main_text), "keyword list: card and CPU tokenize differ")
+    check(sorted({t[2] for t in kw_tok}) == list(range(12)),
+          "keyword list: not every pid matched")
+    emit({"phase": "literal_spans_path", "n": len(main_text),
+          "matches": len(kw_want), "launches": kw_launches,
+          "list_launches": tok_kw_launches, "equal_to_re": True,
+          "list_equal_to_cpu": True})
+
+    # 7. The scan1d paths: classrun and classlit on the config-3 text.
+    b3 = {}
+    for name, (pat, per_call) in B3_PATTERNS.items():
+        bp = rt.Pattern(pat, device=DEV)
+        check(bp.engine == name, f"{pat!r} took {bp.engine}")
+        reset()
+        b_out = bp.match_all_arrays(main_text)
+        b_launches = launches()
+        check(only(b_launches, scan1d=per_call), f"{name}: {b_launches}")
+        d_out = rt.Pattern(pat, rt.Config(engine="dfa"),
+                           device=DEV).match_all_arrays(main_text)
+        check(all(np.array_equal(a, b) for a, b in zip(b_out, d_out)),
+              f"{name}: spans differ from the DFA route")
+        b_want = re_spans(pat, main_text)
+        check(spans_of(b_out) == b_want, f"{name}: spans differ from re")
+        check(bp.match_all_count(main_text) == len(b_want),
+              f"{name}: match_all_count")
+        b3[name] = b_launches["scan1d"]
+        emit({"phase": name + "_path", "pattern": pat.decode(),
+              "n": len(main_text), "matches": len(b_want),
+              "launches": b_launches, "equal_to_dfa_route": True,
+              "equal_to_re": True})
+    # The plain torch routes on the card (Config(pallas='off')) agree too.
+    off_b3 = rt.Pattern(B3_PATTERNS["classlit"][0], rt.Config(pallas="off"),
+                        device=DEV)
+    reset()
+    check(spans_of(off_b3.match_all_arrays(main_text)) == re_spans(
+        B3_PATTERNS["classlit"][0], main_text), "pallas='off' classlit")
+    check(only(launches()), "pallas='off' launched a kernel")
+
+    # 8. Times at 10 MB and 256 MiB.
     times = {}
     if not quick:
         t10, _ = time_size(rt, main_text, "10MB", reps=20, wall_reps=10)
         emit({"phase": "times", **t10})
-        del main_text, sp_text
+        tl10 = time_literal_engines(rt, main_text, "10MB", reps=20,
+                                    walls=True)
+        emit({"phase": "times_literal_engines", **tl10})
+        tc10 = time_config1(rt, c1_text, "10MiB", reps=10)
+        emit({"phase": "times_config1", **tc10})
+        del main_text, sp_text, c1_text
         big = make_corpus(256 << 20, seed=2, needle=b"matching",
                           density=0.01)
-        t256, big_out = time_size(rt, big, "256MiB", reps=5, wall_reps=5)
+        t256, big_out = time_size(rt, big, "256MiB", reps=5, wall_reps=3)
         check(spans_of(big_out) == re_spans(MAIN_PATTERN, big),
               "256 MiB spans differ from re")
         emit({"phase": "times", **t256, "equal_to_re": True})
-        times = t10
+        del big_out
+        tl256 = time_literal_engines(rt, big, "256MiB", reps=5, walls=False)
+        emit({"phase": "times_literal_engines", **tl256})
+        del big
+        big1 = make_corpus(256 << 20, seed=0, needle=b"packet",
+                           density=0.002)
+        check(spans_of(c1.match_all_arrays(big1)) == re_spans(
+            CONFIG1_PATTERN, big1), "config 1 at 256 MiB: spans differ")
+        tc256 = time_config1(rt, big1, "256MiB", reps=3)
+        emit({"phase": "times_config1", **tc256, "equal_to_re": True})
+        times = {**t10, **tl10}
 
     kernels = []
-    for name in ("dfa_phase1", "dfa_phase3", "schain_fused"):
+    path_launches = {
+        **split_launches, "schain_fused": main_launches["schain_fused"],
+        "literal_spans": kw_launches["literal_spans"],
+        "scan1d": sum(b3.values()),
+    }
+    for name in SOURCES:
         row = {
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": (main_launches[name] if name == "schain_fused"
-                         else split_launches[name]),
+            "replaces": REPLACES[name], "launches": path_launches[name],
             "max_abs_err": errs[name], "equal_to_plain": errs[name] == 0,
             "ms": times.get(name + "_ms"),
             "plain_ms": times.get(name + "_plain_ms"),
             "bound_ms": times.get(name + "_bound_ms"),
-            "bound_by": times.get(name + "_bound_by"), "library_ms": None,
+            "bound_by": times.get(name + "_bound_by"),
+            "library_ms": times.get(name + "_library_ms"),
         }
         kernels.append(row)
     emit({"kernels": kernels})

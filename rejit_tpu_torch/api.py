@@ -1,20 +1,40 @@
 """Public API: compiled patterns + one-shot match functions, in PyTorch.
 
-`Pattern` compiles once (parse, analyze, DFA tables placed on a device)
-and matches many texts. Matches are half-open byte spans (start, end) with
-the semantics of docs/SEMANTICS.md: non-overlapping, leftmost-longest.
+`Pattern` compiles once (parse, analyze, pick an engine, place its tables
+on a device) and matches many texts. Matches are half-open byte spans
+(start, end) with the semantics of docs/SEMANTICS.md: non-overlapping,
+leftmost-longest.
 
-Every pattern that compiles to a DFA runs on the DFA engine, by one of two
-routes (`Config.schain_fused`):
-- the fused route, kernels/schain_cuda.py: one schain_fused kernel call
-  matches the whole text from its bytes, and an overlap-free MatchAllCount
-  is a pure device count. 'auto' takes it on the card when the tables fit
-  the kernel (Q <= 256, C*Q <= 4096, fewer than 255 patterns); 'on' forces
-  it on either device (the plain version on the CPU) and raises
-  CompileError for tables that do not fit;
-- the split route, engine/pipeline.py: the L-array pipeline with its phases
-  1 and 3 as CUDA kernels on the card. 'auto' takes it for tables the
-  fused kernel does not take and on the CPU; 'off' forces it.
+Engines (`Config.engine`; None picks one from the analysis as the JAX
+package does, see `choose_engine`):
+- literal (alternations of literals and class-literals; no DFA tables):
+  - bitmask route (overlap-free sets of at most 8 literals, unless
+    `Config.bitmask='off'`): a start mask of shifted compares in torch ops
+    (kernels/literal.py), compacted with `torch.nonzero`; ends and pattern
+    ids decode from the text at each start;
+  - B4 route (other overlap-free byte-literal sets, literals of at most
+    128 bytes, pids below 16, a host text): the literal_spans kernel
+    (kernels/extract_cuda.py) writes the span keys in one pass;
+  - L/I route (overlapping sets, staged corpora, `pallas='off'`): the
+    claim in torch ops, then compaction and greedy selection;
+  - an overlap-free MatchAllCount is a device count.
+- classrun / classlit (`\\b?[class]{lo,hi}\\b?`, and the same with a
+  literal suffix): elementwise torch ops around cumulative scans, the
+  scan1d kernel on the card (kernels/scan_cuda.py).
+- dfa, by one of two routes (`Config.schain_fused`):
+  - the fused route, kernels/schain_cuda.py: one schain_fused kernel call
+    matches the whole text from its bytes, and an overlap-free
+    MatchAllCount is a pure device count. 'auto' takes it on the card when
+    the tables fit the kernel (Q <= 256, C*Q <= 4096, fewer than 255
+    patterns); 'on' forces it on either device (the plain version on the
+    CPU) and raises CompileError for tables that do not fit;
+  - the split route, engine/pipeline.py: the L-array pipeline with its
+    phases 1 and 3 as CUDA kernels on the card. 'auto' takes it for
+    tables the fused kernel does not take and on the CPU; 'off' forces it.
+
+`Config.pallas` picks the kernel routes of the literal and elementwise
+engines (B3, B4): 'auto' takes them on the card, 'on' on either device
+(the kernels' plain versions on the CPU), 'off' takes the torch-op routes.
 
 `stage(text)` uploads a corpus once for repeated scans: every entry point
 takes the DeviceCorpus in place of a text. Entry points run on the card
@@ -29,12 +49,12 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .compile import analysis, parser
+from .compile import analysis, ir, parser
 from .compile.dfa import compile_patterns
 from .config import DEFAULT, Config
 from .engine import pipeline, select, spans
 from .errors import CompileError, StateBlowupError
-from .kernels import schain_cuda
+from .kernels import classlit, classrun, extract_cuda, literal, schain_cuda
 from .utils.stats import MatchStats, Timer
 
 Span = Tuple[int, int]
@@ -43,6 +63,12 @@ PatternLike = Union[str, bytes]
 DeviceLike = Union[None, str, torch.device]
 
 _ENGINES = ("literal", "classrun", "classlit", "dfa", "oracle", "posnfa")
+_NOT_PORTED = ("oracle", "posnfa")
+ELEM_GRAIN = 128    # padding grain of the classrun/classlit texts
+LIT_GRAIN = 1024    # padding grain of the literal engine's texts
+# Bounded class runs with Q ~ hi + 2 at or above this go to the
+# elementwise engines on the card (the JAX package's measured crossover).
+ELEM_MIN_Q = 48
 
 
 def text_to_u8(text: TextLike) -> np.ndarray:
@@ -74,12 +100,16 @@ def resolve_device(device: DeviceLike) -> torch.device:
     return dev
 
 
-def _upload_padded(host: np.ndarray, grain: int,
+def _pad_len(n: int, grain: int, tail: int = 0) -> int:
+    """The smallest positive multiple of `grain` that holds n + tail."""
+    return max(1, -(-(n + tail) // grain)) * grain
+
+
+def _upload_padded(host: np.ndarray, P: int,
                    device: torch.device) -> torch.Tensor:
-    """The text zero-padded to a positive multiple of `grain`, on `device`."""
-    n = len(host)
-    pad = np.zeros(max(1, -(-n // grain)) * grain, dtype=np.uint8)
-    pad[:n] = host
+    """The text zero-padded to P bytes, on `device`."""
+    pad = np.zeros(P, dtype=np.uint8)
+    pad[:len(host)] = host
     return torch.from_numpy(pad).to(device)
 
 
@@ -88,9 +118,10 @@ class DeviceCorpus:
     scanned by many patterns and calls.
 
     Pass it anywhere a text is accepted. The padded device text is cached
-    by length (any multiple of a route's block serves it; a new padding is
-    made on the device, not uploaded again), and each pattern's staging
-    meta by its tables. The host bytes stay available for host paths.
+    by length (any multiple of a route's grain with enough zero tail serves
+    it; a new padding is made on the device, not uploaded again), and each
+    pattern's staging meta by its tables. The host bytes stay available
+    for host paths.
     """
 
     def __init__(self, text: TextLike, device: DeviceLike = None):
@@ -101,21 +132,35 @@ class DeviceCorpus:
         self._padded = {}     # P -> padded uint8 device text
         self._meta = {}       # (static tables, P) -> start state at P
 
-    def padded(self, grain: int) -> torch.Tensor:
-        """The device text padded to a positive multiple of `grain`."""
-        for P, t in self._padded.items():
-            if P % grain == 0:
+    def _padded_to(self, P: int, fits) -> torch.Tensor:
+        """A cached padded text whose length `fits`, else one of P bytes."""
+        for Pc, t in self._padded.items():
+            if fits(Pc):
                 return t
         if not self._padded:
-            t = _upload_padded(self.host, grain, self.device)
+            t = _upload_padded(self.host, P, self.device)
             self.uploads += 1
         else:
             src = next(iter(self._padded.values()))
-            t = torch.zeros(max(1, -(-self.n // grain)) * grain,
-                            dtype=torch.uint8, device=self.device)
+            t = torch.zeros(P, dtype=torch.uint8, device=self.device)
             t[:self.n] = src[:self.n]
-        self._padded[t.shape[0]] = t
+        self._padded[P] = t
         return t
+
+    def padded(self, grain: int) -> torch.Tensor:
+        """The device text padded to a positive multiple of `grain`."""
+        return self._padded_to(_pad_len(self.n, grain),
+                               lambda P: P % grain == 0)
+
+    def padded_ext(self, min_tail: int, grain: int = LIT_GRAIN):
+        """(device text, P): padded to a multiple of `grain` with at least
+        `min_tail` zero bytes past n, the literal engine's staged form
+        (its callers scan P - min_tail positions)."""
+        t = self._padded_to(
+            _pad_len(self.n, grain, min_tail),
+            lambda P: P % grain == 0 and P - self.n >= min_tail,
+        )
+        return t, t.shape[0]
 
     def staged_for(self, ct: pipeline.DeviceTables, grain: int):
         """(padded text, start state at its end) for the fused route."""
@@ -136,6 +181,69 @@ def _unwrap(text):
     if isinstance(text, DeviceCorpus):
         return text.host, text
     return text_to_u8(text), None
+
+
+def choose_engine(irs, info: analysis.PatternInfo, config: Config,
+                  device: torch.device) -> str:
+    """The engine for a parsed pattern list, by the JAX package's rules
+    with its accelerator read as a CUDA device and its CPU backend as
+    device "cpu". A forced engine that does not fit the pattern raises."""
+    eng = config.engine
+    if eng is not None:
+        if eng not in _ENGINES:
+            raise CompileError(f"unknown engine {eng!r}")
+        if eng in _NOT_PORTED:
+            raise CompileError(
+                f"engine {eng!r} is not ported to rejit_tpu_torch yet; use "
+                "engine=None, 'literal', 'classrun', 'classlit' or 'dfa'"
+            )
+        if eng == "literal" and not info.literals:
+            raise CompileError(
+                "pattern is not a literal alternation; cannot force the "
+                "literal engine"
+            )
+        if eng == "classrun" and not (
+            len(irs) == 1 and classrun.detect(irs[0])
+        ):
+            raise CompileError(
+                "pattern is not a (\\b-wrapped) char-class repetition; "
+                "cannot force the classrun engine"
+            )
+        if eng == "classlit" and not (
+            len(irs) == 1 and classlit.detect(irs[0])
+        ):
+            raise CompileError(
+                "pattern is not a (\\b-wrapped) char-class repetition + "
+                "literal suffix; cannot force the classlit engine"
+            )
+        return eng
+    if info.literals:
+        return "literal"
+    if len(irs) != 1:
+        return "dfa"
+    on_cpu = device.type == "cpu"
+    cr = classrun.detect(irs[0])
+    if cr:
+        hi = cr[2]
+        if on_cpu or config.schain_fused == "off":
+            return "classrun"
+        if config.schain_fused == "on":
+            return "dfa"  # explicit fused-DFA opt-in
+        # The fused DFA wins at small Q; bounded runs have Q ~ hi + 2, and
+        # unbounded runs stay on the DFA.
+        if hi is not None and hi + 2 >= ELEM_MIN_Q:
+            return "classrun"
+        return "dfa"
+    cl = classlit.detect(irs[0])
+    if cl:
+        _, lo, hi, sfx, _, _ = cl
+        if not on_cpu and config.schain_fused == "on":
+            return "dfa"  # explicit fused-DFA opt-in
+        # The run+suffix DFA has Q >~ hi + |S|.
+        q_est = (hi if hi is not None else lo) + len(sfx) + 2
+        if q_est >= ELEM_MIN_Q or on_cpu:
+            return "classlit"
+    return "dfa"
 
 
 class Pattern:
@@ -169,33 +277,41 @@ class Pattern:
             )
         self.irs = [parser.parse(p) for p in self.source]
         self.info = analysis.analyze(self.irs)
-        self.engine = self._select_engine()
-        try:
-            self.tables = compile_patterns(
-                self.irs,
-                max_nfa_states=config.max_nfa_states,
-                max_dfa_states=config.max_dfa_states,
-            )
-        except StateBlowupError as err:
-            raise StateBlowupError(
-                f"{err}; the position-NFA and oracle fallbacks for DFA "
-                "blowups are not ported to rejit_tpu_torch yet"
-            ) from err
-        self.ct = pipeline.device_tables(self.tables, device=self.device)
-        self.fused = self._use_schain_fused()
+        self.engine = choose_engine(self.irs, self.info, config, self.device)
+        self.tables = None
+        self.ct = None
+        self.fused = False
         self.fused_block = config.fused_block or schain_cuda.DEFAULT_BLOCK
+        self._classrun = None
+        self._classlit = None
         self.last_stats: MatchStats = MatchStats()
-
-    def _select_engine(self) -> str:
-        eng = self.config.engine
-        if eng is None or eng == "dfa":
-            return "dfa"
-        if eng in _ENGINES:
-            raise CompileError(
-                f"engine {eng!r} is not ported to rejit_tpu_torch yet; "
-                "use engine=None or 'dfa'"
+        if self.engine in ("classrun", "classlit"):
+            kernel = classrun if self.engine == "classrun" else classlit
+            bitmap, *shape = kernel.detect(self.irs[0])
+            luts = tuple(
+                torch.from_numpy(classrun.member_lut(b)).to(self.device)
+                for b in (bitmap, ir.WORD)
             )
-        raise CompileError(f"unknown engine {eng!r}")
+            if self.engine == "classrun":
+                self._classrun = luts + tuple(shape)
+            else:
+                self._classlit = luts + tuple(shape)
+            self._class_runs = classrun.bitmap_runs(bitmap)
+            self._word_runs = classrun.bitmap_runs(ir.WORD)
+        if self.engine == "dfa":
+            try:
+                self.tables = compile_patterns(
+                    self.irs,
+                    max_nfa_states=config.max_nfa_states,
+                    max_dfa_states=config.max_dfa_states,
+                )
+            except StateBlowupError as err:
+                raise StateBlowupError(
+                    f"{err}; the position-NFA and oracle fallbacks for DFA "
+                    "blowups are not ported to rejit_tpu_torch yet"
+                ) from err
+            self.ct = pipeline.device_tables(self.tables, device=self.device)
+            self.fused = self._use_schain_fused()
 
     def _use_schain_fused(self) -> bool:
         """The fused route (kernels/schain_cuda.py) or the split pipeline."""
@@ -213,6 +329,41 @@ class Pattern:
             return True
         return fits and self.device.type == "cuda"
 
+    def _use_kernels(self) -> bool:
+        """Whether the literal and elementwise engines take their kernel
+        routes (Config.pallas): on the card under 'auto', anywhere under
+        'on' (the plain versions on the CPU)."""
+        mode = self.config.pallas
+        if mode in ("on", "off"):
+            return mode == "on"
+        return self.device.type == "cuda"
+
+    def _bitmask_ok(self) -> bool:
+        """Does this pattern take the literal bitmask route? Capped at 8
+        literals, as in the JAX package: larger overlap-free sets take the
+        literal_spans kernel."""
+        return (
+            self.engine == "literal"
+            and self.info.overlap_free
+            and self.config.bitmask != "off"
+            and len(self.info.literals) <= 8
+        )
+
+    def _spans_kernel_ok(self, corpus) -> bool:
+        """Does match_all take the literal_spans kernel route (an
+        overlap-free byte-literal set the bitmask route does not take, a
+        host text)?"""
+        lits = self.info.literals
+        return (
+            self.engine == "literal"
+            and self.info.overlap_free
+            and corpus is None
+            and self._use_kernels()
+            and all(isinstance(l, bytes) for l in lits)
+            and max(len(l) for l in lits) <= extract_cuda.CHL
+            and max(self.info.literal_pids) < 16
+        )
+
     # -- internals ----------------------------------------------------------
 
     def _corpus(self, corpus: DeviceCorpus) -> DeviceCorpus:
@@ -222,31 +373,75 @@ class Pattern:
             )
         return corpus
 
+    def _padded_text(self, text: np.ndarray, corpus, grain: int):
+        """The text on the pattern's device, padded to a multiple of grain."""
+        if corpus is not None:
+            return self._corpus(corpus).padded(grain)
+        return _upload_padded(text, _pad_len(len(text), grain), self.device)
+
     def _staged(self, text: np.ndarray, corpus):
         """(padded text, start state at its end) for the fused kernel."""
         if corpus is not None:
             return self._corpus(corpus).staged_for(self.ct, self.fused_block)
-        dev_text = _upload_padded(text, self.fused_block, self.device)
+        dev_text = self._padded_text(text, None, self.fused_block)
         return dev_text, schain_cuda.stage_meta(self.ct, dev_text)
+
+    def _literal_ext(self, text: np.ndarray, corpus, max_m: int = 0):
+        """(device text, P) for the literal engine: P positions scanned and
+        at least max_m (default: the longest literal's length) zero bytes
+        past them."""
+        max_m = max_m or max(len(l) for l in self.info.literals)
+        if corpus is not None:
+            ext, P_arr = self._corpus(corpus).padded_ext(max_m)
+            return ext, P_arr - max_m
+        P = _pad_len(len(text), LIT_GRAIN)
+        ext = literal.extend_pad(text, P, max_m)
+        return torch.from_numpy(ext).to(self.device), P
 
     def _l_i_device(self, text: np.ndarray, corpus=None):
         """(L, I) tensors on the pattern's device, length P+1 (-1 past n)."""
         n = len(text)
+        if self.engine in ("classrun", "classlit"):
+            dev_text = self._padded_text(text, corpus, ELEM_GRAIN)
+            common = dict(use_kernel=self._use_kernels(),
+                          class_runs=self._class_runs,
+                          word_runs=self._word_runs)
+            if self.engine == "classrun":
+                lut, wlut, lo, hi, lead_wb, trail_wb = self._classrun
+                return classrun.classrun_l_arrays_device(
+                    lut, wlut, dev_text, n, lo=lo, hi=hi, lead_wb=lead_wb,
+                    trail_wb=trail_wb, **common,
+                )
+            lut, wlut, lo, hi, sfx, lead_wb, trail_wb = self._classlit
+            return classlit.classlit_l_arrays_device(
+                lut, wlut, dev_text, n, lo=lo, hi=hi, sfx=sfx,
+                lead_wb=lead_wb, trail_wb=trail_wb, **common,
+            )
+        if self.engine == "literal":
+            ext, P = self._literal_ext(text, corpus)
+            return literal.literal_l_arrays_device(
+                ext, n, lits=self.info.literals,
+                pids=self.info.literal_pids, P=P,
+            )
         if self.fused:
             return schain_cuda.l_arrays_device_staged(
                 self.ct, self._staged(text, corpus), n,
                 block=self.fused_block, use_ff=self.config.use_ff,
             )
         K = self.config.block_size
-        if corpus is None:
-            dev_text = _upload_padded(text, K, self.device)
-        else:
-            dev_text = self._corpus(corpus).padded(K)
+        dev_text = self._padded_text(text, corpus, K)
         if self.config.use_ff:
             return pipeline.l_arrays_device_ff(
                 self.ct, dev_text, n, block=K, force=self.config.force_ff
             )
         return pipeline.l_arrays_device(self.ct, dev_text, n, block=K)
+
+    def _start_mask(self, text: np.ndarray, corpus) -> torch.Tensor:
+        """The bitmask route's (P,) candidate-start mask."""
+        ext, P = self._literal_ext(text, corpus)
+        return literal.literal_start_mask_device(
+            ext, len(text), lits=self.info.literals, P=P
+        )
 
     def _record(self, op, n_bytes, n_matches, t_dev, t_all, n_cand=0,
                 t_sel=0.0):
@@ -260,6 +455,64 @@ class Pattern:
             select_time_s=t_sel,
             total_time_s=t_all,
         )
+
+    @staticmethod
+    def _widths_at(t: np.ndarray, sp: np.ndarray, lits, order):
+        """(widths, index into lits) of the first literal in `order` that
+        matches at each start of `sp` (-1 where none does), vectorised over
+        the starts."""
+        n = len(t)
+        widths = np.full(len(sp), -1, dtype=np.int64)
+        which = np.full(len(sp), -1, dtype=np.int64)
+        for i in order:
+            lit = lits[i]
+            hit = (which < 0) & (sp <= n - len(lit))
+            by_pos = ([np.uint8(b) for b in lit] if isinstance(lit, bytes)
+                      else [np.asarray(a, np.uint8) for a in lit])
+            for j, allowed in enumerate(by_pos):
+                tj = t[np.minimum(sp + j, n - 1)]
+                ok = tj == allowed if allowed.ndim == 0 else np.isin(
+                    tj, allowed)
+                np.logical_and(hit, ok, out=hit)
+            widths[hit] = len(lit)
+            which[hit] = i
+        return widths, which
+
+    def _decode_ends_pids(self, t: np.ndarray, sp: np.ndarray):
+        """(starts, ends, pids) from the candidate starts of an OVERLAP-FREE
+        literal set: every start is a match start; its width and pattern id
+        decode from the text bytes, in claim order."""
+        lits, lpids = self.info.literals, self.info.literal_pids
+        if len(lits) == 1:
+            return (sp, sp + len(lits[0]),
+                    np.full(len(sp), lpids[0], dtype=np.int64))
+        widths, which = self._widths_at(t, sp, lits,
+                                        literal.claim_order(lits, lpids))
+        pids = np.asarray(lpids, dtype=np.int64)[which]
+        return sp, np.where(which >= 0, sp + widths, -1), np.where(
+            which >= 0, pids, -1)
+
+    @classmethod
+    def _nonoverlap_count(cls, t: np.ndarray, sp: np.ndarray, lits) -> int:
+        """Exact leftmost-longest non-overlap count over sorted candidate
+        starts `sp` for one pattern's literal set: the width at each start
+        is the longest literal matching there; the greedy pass runs over
+        the sparse candidates only."""
+        if len(sp) == 0:
+            return 0
+        lens = {len(l) for l in lits}
+        if len(lens) == 1:
+            widths = np.full(len(sp), lens.pop(), dtype=np.int64)
+        else:
+            order = sorted(range(len(lits)), key=lambda i: -len(lits[i]))
+            widths, _ = cls._widths_at(t, sp, lits, order)
+        cnt = 0
+        prev_end = 0
+        for s, w in zip(sp.tolist(), widths.tolist()):
+            if s >= prev_end:
+                cnt += 1
+                prev_end = s + w
+        return cnt
 
     # -- MatchType API ------------------------------------------------------
 
@@ -275,6 +528,14 @@ class Pattern:
 
     def match_anywhere(self, text: TextLike) -> bool:
         t, corpus = _unwrap(text)
+        if self._bitmask_ok():
+            with Timer() as t_all:
+                with Timer() as t_dev:
+                    mask = self._start_mask(t, corpus)
+                    found = spans.first_candidate(mask, len(t)) < len(t)
+            self._record("match_anywhere", len(t), int(found),
+                         t_dev.elapsed, t_all.elapsed, n_cand=int(found))
+            return found
         with Timer() as t_all:
             with Timer() as t_dev:
                 L, _ = self._l_i_device(t, corpus)
@@ -285,6 +546,20 @@ class Pattern:
 
     def match_first(self, text: TextLike) -> Optional[Span]:
         t, corpus = _unwrap(text)
+        if self._bitmask_ok():
+            # One device reduction over the start mask; the end decodes
+            # from the text at the start.
+            with Timer() as t_all:
+                with Timer() as t_dev:
+                    mask = self._start_mask(t, corpus)
+                    first = spans.first_candidate(mask, len(t))
+                found = first < len(t)
+            self._record("match_first", len(t), int(found),
+                         t_dev.elapsed, t_all.elapsed, n_cand=int(found))
+            if not found:
+                return None
+            _, end, _ = self._decode_ends_pids(t, np.array([first]))
+            return (first, int(end[0]))
         with Timer() as t_all:
             with Timer() as t_dev:
                 L, I = self._l_i_device(t, corpus)
@@ -304,11 +579,52 @@ class Pattern:
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """MatchAll as (starts, ends, pattern_ids) numpy arrays."""
         t, corpus = _unwrap(text)
+        if self._bitmask_ok():
+            # Overlap-freedom makes every candidate start a match start, so
+            # the start mask is the whole device result; widths and pattern
+            # ids decode from the text bytes at each start.
+            with Timer() as t_all:
+                with Timer() as t_dev:
+                    sp = spans.mask_positions(self._start_mask(t, corpus))
+                with Timer() as t_sel:
+                    out = self._decode_ends_pids(t, sp)
+            self._record("match_all", len(t), len(sp), t_dev.elapsed,
+                         t_all.elapsed, n_cand=len(sp), t_sel=t_sel.elapsed)
+            return out
+        if self._spans_kernel_ok(corpus):
+            # The literal_spans kernel: one pass over the text gives each
+            # 128-byte row's span keys, with no (L, I) arrays. Counts are
+            # exact past the cap, so a row with more hits re-runs the call
+            # with a larger cap before decoding.
+            n = len(t)
+            lits = self.info.literals
+            with Timer() as t_all:
+                with Timer() as t_dev:
+                    rows = torch.from_numpy(extract_cuda.pad_rows(
+                        t, n, max(len(l) for l in lits))).to(self.device)
+                    cap = 4
+                    while True:
+                        keys, cnt = extract_cuda.literal_spans(
+                            rows, n, lits=lits,
+                            pids=self.info.literal_pids, cap=cap,
+                        )
+                        mx = int(cnt.max())
+                        if mx <= cap:
+                            break
+                        while cap < mx:
+                            cap *= 2
+                    n_cand = int(cnt.sum())
+                with Timer() as t_sel:
+                    out = extract_cuda.spans_host(keys)
+            self._record("match_all", n, len(out[0]), t_dev.elapsed,
+                         t_all.elapsed, n_cand=n_cand, t_sel=t_sel.elapsed)
+            return out
         with Timer() as t_all:
             with Timer() as t_dev:
                 L, I = self._l_i_device(t, corpus)
                 n_cand = int(spans.candidate_count(L))
-            if self.info.run_partition and n_cand * 8 > len(t):
+            if (self.engine in ("dfa", "classrun") and self.info.run_partition
+                    and n_cand * 8 > len(t)):
                 # Dense run-partition results (tokenizers): selection is
                 # elementwise and the host receives one uint8 per position.
                 with Timer() as t_sel:
@@ -329,7 +645,16 @@ class Pattern:
 
     def match_all_count(self, text: TextLike) -> int:
         t, corpus = _unwrap(text)
-        if self.info.run_partition:
+        if self.engine == "literal" and self.info.overlap_free:
+            # A device reduction; no span materialization.
+            with Timer() as t_all:
+                ext, P = self._literal_ext(t, corpus)
+                cnt = int(literal.literal_count_device(
+                    ext, len(t), lits=self.info.literals, P=P))
+            self._record("match_all_count", len(t), cnt, t_all.elapsed,
+                         t_all.elapsed)
+            return cnt
+        if self.engine in ("dfa", "classrun") and self.info.run_partition:
             # Elementwise selection makes the count a device reduction
             # over the (L, I) tensors.
             with Timer() as t_all:
@@ -353,6 +678,63 @@ class Pattern:
         cnt = len(self.match_all_arrays(text)[0])
         self.last_stats.op = "match_all_count"
         return cnt
+
+    def match_all_count_each(self, text: TextLike) -> np.ndarray:
+        """Per-pattern MatchAllCount, each pattern counted on its own.
+
+        Unlike `tokenize`/`match_all` (which resolve cross-pattern overlap
+        by longest-then-lowest-id priority), every pattern id is scanned as
+        if it were alone (the regexdna semantics: one MatchAllCount per
+        variant). Patterns that are literal sets run in one pass of
+        per-pattern start masks with exact non-overlap selection on the
+        host over the sparse candidates; others take one count per
+        pattern. Returns an (n_patterns,) int64 array.
+        """
+        t, corpus = _unwrap(text)
+        k = len(self.irs)
+        # Route per pattern, from each pattern's own analysis: the union's
+        # engine may be 'dfa' while its patterns are literal sets.
+        if self.engine == "literal":
+            lits = list(self.info.literals)
+            pids = list(self.info.literal_pids)
+            slow = []
+        else:
+            lits, pids, slow = [], [], []
+            for i, src in enumerate(self.source):
+                sub = _cached((src,), self.config, self.device)
+                if sub.engine == "literal":
+                    lits.extend(sub.info.literals)
+                    pids.extend([i] * len(sub.info.literals))
+                else:
+                    slow.append(i)
+        counts = np.zeros(k, dtype=np.int64)
+        n_cand = 0
+        t_dev = t_sel = 0.0
+        with Timer() as t_all:
+            if lits:
+                with Timer() as td:
+                    ext, P = self._literal_ext(
+                        t, corpus, max(len(l) for l in lits))
+                    masks = literal.literal_start_mask_by_pid_device(
+                        ext, len(t), lits=tuple(lits), pids=tuple(pids),
+                        n_pat=k, P=P,
+                    )
+                    starts = {p: spans.mask_positions(masks[p])
+                              for p in sorted(set(pids))}
+                t_dev = td.elapsed
+                with Timer() as ts:
+                    for p, sp in starts.items():
+                        n_cand += len(sp)
+                        counts[p] = self._nonoverlap_count(
+                            t, sp, [l for l, q in zip(lits, pids) if q == p])
+                t_sel = ts.elapsed
+            for i in slow:
+                counts[i] = _cached(
+                    (self.source[i],), self.config, self.device
+                ).match_all_count(text)
+        self._record("match_all_count_each", len(t), int(counts.sum()),
+                     t_dev, t_all.elapsed, n_cand=n_cand, t_sel=t_sel)
+        return counts
 
 
 @functools.lru_cache(maxsize=256)

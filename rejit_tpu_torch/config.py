@@ -7,23 +7,32 @@ overrides and no global mutable state (SURVEY.md §5.6).
 
 The PyTorch port keeps the JAX package's `Config` field for field, so a
 user's `Config` means the same thing in both. The port reads `engine`
-(only None or 'dfa' are served so far), `ignore_case`, `block_size` (the
-split pipeline's K), `use_ff`, `force_ff`, `max_nfa_states`,
-`max_dfa_states`, `schain_fused` and `fused_block`:
+(None, 'literal', 'classrun', 'classlit' or 'dfa'; 'oracle' and 'posnfa'
+are not served yet), `ignore_case`, `block_size` (the split pipeline's K),
+`use_ff`, `force_ff`, `max_nfa_states`, `max_dfa_states`, `schain_fused`,
+`fused_block`, `pallas` and `bitmask`:
 - `schain_fused` picks the DFA route: 'auto' takes the fused CUDA kernel
   (kernels/schain_cuda.py) on a CUDA device when the tables fit it
   (Q <= 256, C*Q <= 4096, fewer than 255 patterns) and the split pipeline
   otherwise or on the CPU; 'on' forces the fused route on either device
   (its plain version on the CPU) and raises CompileError for tables that
-  do not fit; 'off' forces the split pipeline;
-- `fused_block` is the fused kernel's K (None: schain_cuda.DEFAULT_BLOCK).
+  do not fit; 'off' forces the split pipeline. As in the JAX package it
+  also steers the engine choice of class-run patterns on the card ('on'
+  keeps them on the DFA, 'off' sends every class run to classrun);
+- `fused_block` is the fused kernel's K (None: schain_cuda.DEFAULT_BLOCK);
+- `pallas` picks the kernel routes of the literal and elementwise engines:
+  'auto' takes the literal_spans kernel (kernels/extract_cuda.py) and the
+  scan1d kernel (kernels/scan_cuda.py) on a CUDA device; 'on' takes them
+  on either device (their plain versions on the CPU); 'off' takes the
+  torch-op routes (the L/I claim, torch.cummin/cummax);
+- `bitmask` ('auto' or 'off') lets overlap-free sets of at most 8
+  literals take the start-mask route of the literal engine.
 Every other field is accepted and has no effect in the port yet: the
-TPU-only knobs (`pallas`, `schain`, `schain_rolled`, `fused_chl`,
-`interpret`, `matmul`, `bitmask`) and those of engines and paths that later
-port slices bring (`selection`, `oracle_fallback`, `posnfa`,
-`max_pos_states`, `posnfa_block`, `posnfa_chunk_bytes`, `disk_cache`,
-`first_window`, `device_select_threshold`, `print_tree`, `print_tables`,
-`mesh_axis`).
+TPU-only knobs (`schain`, `schain_rolled`, `fused_chl`, `interpret`,
+`matmul`) and those of engines and paths that later port slices bring
+(`selection`, `oracle_fallback`, `posnfa`, `max_pos_states`,
+`posnfa_block`, `posnfa_chunk_bytes`, `disk_cache`, `first_window`,
+`device_select_threshold`, `print_tree`, `print_tables`, `mesh_axis`).
 """
 from __future__ import annotations
 

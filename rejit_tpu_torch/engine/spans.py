@@ -1,5 +1,5 @@
-"""Span emission from (L, I) tensors: candidate compaction and the
-run-partition (tokenizer) selection.
+"""Span emission from (L, I) tensors and start masks: candidate compaction
+and the run-partition (tokenizer) selection.
 
 Candidates (boundaries with L[s] >= 0) are compacted on the device with
 `torch.nonzero`, so the host receives O(#candidates) values, not O(text).
@@ -43,6 +43,24 @@ def candidates_host(
         end.cpu().numpy(),
         pid.cpu().numpy(),
     )
+
+
+def mask_positions(mask: torch.Tensor) -> np.ndarray:
+    """Host int64 positions of the set entries of a 1-D bool start mask
+    (the literal engine's bitmask route), compacted on the mask's device.
+    The JAX package peels rows of packed words instead
+    (extract_rows_bitmask and its cap loop)."""
+    return torch.nonzero(mask).squeeze(1).cpu().numpy().astype(np.int64)
+
+
+def first_candidate(mask: torch.Tensor, n: int) -> int:
+    """Index of the first set entry of a 1-D bool start mask below n, or n
+    when there is none: one device reduction and one scalar to the host."""
+    if n == 0:
+        return 0
+    m = mask[:n]
+    i = torch.argmax(m.to(torch.uint8))
+    return int(torch.where(m[i], i, n))
 
 
 def partition_select_mask(L: torch.Tensor, I: torch.Tensor) -> torch.Tensor:

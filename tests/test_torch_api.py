@@ -6,6 +6,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import rejit_tpu
 import rejit_tpu_torch as rt
@@ -14,6 +15,10 @@ from rejit_tpu.engine import select as jax_select
 from rejit_tpu_torch.engine import select
 from rejit_tpu_torch.errors import CompileError, StateBlowupError
 from rejit_tpu_torch.utils.corpus import make_corpus
+
+# Small inputs: one intra-op thread keeps the xdist workers from
+# oversubscribing the CPU.
+torch.set_num_threads(1)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 with open(os.path.join(_HERE, "conformance", "corpus.json")) as f:
@@ -26,7 +31,8 @@ def _ids():
 
 @pytest.mark.parametrize("case", CASES, ids=_ids())
 def test_conformance_corpus(case):
-    """Every corpus case compiles to a DFA, so every case runs here."""
+    """Every corpus case runs here, on the engine the port picks for it
+    (literal, classrun, classlit or dfa)."""
     pats = [p.encode("latin-1") for p in case["patterns"]]
     text = base64.b64decode(case["text_b64"])
     want = [tuple(t) for t in case["match_all_ids"]]
@@ -93,7 +99,7 @@ def test_tokenizer_takes_the_run_partition_branch():
 
 
 @pytest.mark.parametrize("seed", [0, 2, 5])
-@pytest.mark.parametrize("size", [0, 999, 1 << 16])
+@pytest.mark.parametrize("size", [0, 999, 1 << 16, 7_000_000])
 def test_make_corpus_equals_bench_generator(seed, size):
     assert make_corpus(size, seed=seed) == bench_make_corpus(size, seed=seed)
     assert make_corpus(
@@ -117,22 +123,27 @@ def test_module_functions_and_stats():
     assert p.match_all("a PaCkEt") == [(2, 8)]
     st = p.last_stats
     assert (st.engine, st.op, st.n_bytes, st.n_matches) == (
-        "dfa", "match_all", 8, 1
+        "literal", "match_all", 8, 1
     )
 
 
 def test_use_ff_off_and_force_give_the_same_spans():
     text = _corpus(3)
-    want = rt.Pattern(rb"\b\w+ing\b", device="cpu").match_all(text)
-    for cfg in (rt.Config(use_ff=False), rt.Config(force_ff=True),
-                rt.Config(block_size=64)):
+    want = rt.Pattern(rb"\b\w+ing\b", rt.Config(engine="dfa"),
+                      device="cpu").match_all(text)
+    for cfg in (rt.Config(engine="dfa", use_ff=False),
+                rt.Config(engine="dfa", force_ff=True),
+                rt.Config(engine="dfa", block_size=64)):
         assert rt.Pattern(rb"\b\w+ing\b", cfg, device="cpu").match_all(
             text) == want
 
 
 def test_unported_engines_and_blowups_raise():
-    with pytest.raises(CompileError, match="not ported"):
-        rt.Pattern("a", rt.Config(engine="literal"), device="cpu")
+    for eng in ("oracle", "posnfa"):
+        with pytest.raises(CompileError, match="not ported"):
+            rt.Pattern("a", rt.Config(engine=eng), device="cpu")
+    assert rt.Pattern("a", rt.Config(engine="literal"),
+                      device="cpu").match_all(b"aba") == [(0, 1), (2, 3)]
     with pytest.raises(CompileError, match="unknown engine"):
         rt.Pattern("a", rt.Config(engine="nope"), device="cpu")
     with pytest.raises(StateBlowupError, match="not ported"):

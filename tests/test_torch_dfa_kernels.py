@@ -18,6 +18,10 @@ from rejit_tpu.kernels import dfa_pallas
 from rejit_tpu_torch.engine import pipeline
 from rejit_tpu_torch.kernels import dfa_cuda
 
+# Small inputs: one intra-op thread keeps the xdist workers from
+# oversubscribing the CPU.
+torch.set_num_threads(1)
+
 PATS = [
     (rb"\w+ing\b",), (rb"[a-z]+",), (rb"foo|bar",), (rb"a*",), (rb"^line",),
     (rb"\b\w+ing\b",), (rb"\w+", rb"\s+", rb"[^\w\s]+"),

@@ -29,6 +29,9 @@ def test_import_loads_no_jax_and_no_rejit_tpu():
         "import rejit_tpu_torch.kernels.build\n"
         "import rejit_tpu_torch.kernels.schain_cuda\n"
         "import rejit_tpu_torch.engine.schain\n"
+        "import rejit_tpu_torch.kernels.extract_cuda\n"
+        "import rejit_tpu_torch.kernels.scan_cuda\n"
+        "import rejit_tpu_torch.kernels.classlit\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib') "
         "or m == 'rejit_tpu' or m.startswith('rejit_tpu.'))\n"
@@ -119,7 +122,8 @@ def test_plain_runs_on_cpu_count_no_launch():
 
 
 def test_fused_wrapper_checks_and_plain_run_counts_no_launch():
-    ct = rejit_tpu_torch.Pattern(rb"\w+ing", device="cpu").ct
+    ct = rejit_tpu_torch.Pattern(
+        rb"\w+ing", rejit_tpu_torch.Config(engine="dfa"), device="cpu").ct
     text = torch.zeros(64, dtype=torch.uint8)
     seed = schain_cuda.solo_seed(ct, 60)
     with pytest.raises(TypeError):

@@ -24,6 +24,10 @@ from rejit_tpu.kernels import schain_pallas
 from rejit_tpu_torch.engine import pipeline
 from rejit_tpu_torch.kernels import schain_cuda
 
+# Small inputs: one intra-op thread keeps the xdist workers from
+# oversubscribing the CPU.
+torch.set_num_threads(1)
+
 PATS = [
     (rb"\b\w+ing\b",), (rb"[a-z]+",), (rb"foo|bar|baz",), (rb"a*",),
     (rb"^line.*$",), (rb"\w+", rb"\s+", rb"[^\w\s]+"),

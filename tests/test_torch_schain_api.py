@@ -8,6 +8,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import rejit_tpu
 import rejit_tpu_torch as rt
@@ -16,13 +17,17 @@ from rejit_tpu.compile.dfa import compile_patterns
 from rejit_tpu_torch.errors import CompileError
 from rejit_tpu_torch.kernels import schain_cuda
 
+# Small inputs: one intra-op thread keeps the xdist workers from
+# oversubscribing the CPU.
+torch.set_num_threads(1)
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 with open(os.path.join(_HERE, "conformance", "corpus.json")) as f:
     CASES = json.load(f)
 
 JCFG = rejit_tpu.Config(engine="dfa", schain_fused="on", interpret=True,
                         block_size=8, fused_block=8, fused_chl=2)
-ON = rt.Config(schain_fused="on")
+ON = rt.Config(engine="dfa", schain_fused="on")
 SOUP = np.frombuffer(b"abc defoo barbaz ing singing\n working! line", np.uint8)
 
 
@@ -71,10 +76,11 @@ def test_fused_route_conformance_corpus(i):
     c = CASES[i]
     want = [tuple(t) for t in c["match_all_ids"]]
     try:
-        p = rt.Pattern(pats, rt.Config(schain_fused="on", fused_block=16),
-                       device="cpu")
+        p = rt.Pattern(pats, rt.Config(engine="dfa", schain_fused="on",
+                                       fused_block=16), device="cpu")
     except CompileError:
-        p = rt.Pattern(pats, rt.Config(fused_block=16), device="cpu")
+        p = rt.Pattern(pats, rt.Config(engine="dfa", fused_block=16),
+                       device="cpu")
         t = p.tables
         assert not schain_cuda.fits(t.n_states, t.n_classes, t.n_patterns)
     assert p.tokenize(text) == want
@@ -117,8 +123,9 @@ def test_stage_uploads_once_across_patterns_and_routes():
     runs = [
         (rb"\b\w+ing\b", ON),
         ([rb"\w+", rb"\s+", rb"[^\w\s]+"], ON),
-        (rb"\b\w+ing\b", rt.Config(schain_fused="off")),
-        (rb"\b\w+ing\b", rt.Config(schain_fused="on", fused_block=16)),
+        (rb"\b\w+ing\b", rt.Config(engine="dfa", schain_fused="off")),
+        (rb"\b\w+ing\b", rt.Config(engine="dfa", schain_fused="on",
+                                    fused_block=16)),
         (rb"foo|bar|baz", ON),
     ]
     for pats, cfg in runs:
@@ -131,10 +138,14 @@ def test_stage_uploads_once_across_patterns_and_routes():
 
 
 def test_routes():
-    assert not rt.Pattern("a", device="cpu").fused          # auto on CPU
+    dfa = rt.Config(engine="dfa")
+    assert not rt.Pattern("a", dfa, device="cpu").fused     # auto on CPU
     assert rt.Pattern("a", ON, device="cpu").fused
-    assert not rt.Pattern("a", rt.Config(schain_fused="off"),
+    assert not rt.Pattern("a", rt.Config(engine="dfa", schain_fused="off"),
                           device="cpu").fused
+    # A literal takes the literal engine, with no DFA tables.
+    lit = rt.Pattern("a", rt.Config(schain_fused="on"), device="cpu")
+    assert (lit.engine, lit.fused, lit.ct) == ("literal", False, None)
     assert rt.Pattern("a", ON, device="cpu").fused_block == (
         schain_cuda.DEFAULT_BLOCK)
     p = rt.Pattern("foo|bar", ON, device="cpu")
@@ -151,5 +162,5 @@ def test_on_raises_for_tables_the_kernel_does_not_take():
     with pytest.raises(rejit_tpu.CompileError):
         rejit_tpu.Pattern(pat.decode(), JCFG).match_all(b"abc")
     # 'auto' takes the split pipeline for it.
-    p = rt.Pattern(pat, device="cpu")
+    p = rt.Pattern(pat, rt.Config(engine="dfa"), device="cpu")
     assert not p.fused and p.match_all(b"a" * 301) == [(0, 300)]
