@@ -15,14 +15,20 @@ per source, all started together), then:
    tensors, bit for bit: dfa_phase1 and dfa_phase3 (with and without
    posbase) for 7 pattern sets, and schain_fused in its L, L+I and count
    modes, with the FF tile skip on and off, with the solo and a neutral
-   seed (G included), at n = P, P-3, a tile edge, 1 and 0, for 8 pattern
-   sets on dense and sparse texts, at fused blocks K = 8, 24 and 64 beside
-   the default 32, and at the main path's shapes; the sparse texts must
-   take the skip; literal_spans at caps 0, 2, 4 and 16 for sets of 1, 3, 9
-   and 15 literals of 1 to 128 bytes at n = P, P-3, a row edge, a block
-   edge, 1 and 0, and for the 12 keywords on the main text; scan1d in both
-   directions on random, monotone and constant int32 around its tile size
-   and at the main path's length;
+   seed (G included), at n = P, P-3, a tile edge, 1 and 0, for 10 pattern
+   sets (Q = 2..242, every sweep width W = 2..32) on dense and sparse
+   200 KB texts, in both kernel instances where Q <= 32 (the sweep and the
+   tile instance) and the tile instance above, at fused blocks K = 8, 24
+   and 64 beside the default 32, and on the 10 MB dense and sparse texts
+   (W = 8 and 32, several tiles a chunk) at n = P, P-3 and, per mode from
+   the card's own geometry, a tile edge inside a chunk, a chunk edge and
+   a segment edge of the sweep instance; the sparse texts must take the
+   skip; literal_spans at caps 0, 2, 4 and 16 for sets of 1, 3, 9 and 15
+   literals of 1 to 128 bytes and a set of 1-, 3-, 4-, 5- and 8-byte
+   literals, at n = P, P-3, a row edge, a block edge, 1 and 0, and for the
+   12 keywords on the main text; scan1d in both directions on random,
+   monotone and constant int32 around its tile size and at the main path's
+   length;
 3. runs the main path, `Pattern(r"\\b\\w+ing\\b").match_all_arrays(text)`
    on the 10 MB config-3 corpus, with the launch counters set to 0 just
    before and read just after: it must launch schain_fused and neither
@@ -51,7 +57,8 @@ per source, all started together), then:
    route's stages and the entry points' walls (host bytes and staged
    corpus) with CUDA events and the host clock, on the 10 MB text and on
    a 256 MiB text from the same generator, and config 1 at 10 MiB and
-   256 MiB.
+   256 MiB; schain_fused in both instances; last, schain_fused per launch
+   (torch.profiler).
 
 Every result is a JSON line; the `{"kernels": [...]}` line and the card's
 nvidia-smi line come just before the last line, which is
@@ -229,34 +236,75 @@ def split_kernels_vs_plain(rt, pats, text: bytes, dev, seed: int) -> dict:
             "smem_table": dc.table_in_smem(ct.n_states, C)}
 
 
-def fused_vs_plain(ct, text: torch.Tensor, ns, modes=("l", "li", "count"),
-                   seeds=("solo", "neutral"), block: int = K) -> dict:
-    """Max |schain_fused - schain_fused_plain| (L, I, count and G) over the
-    n values, seeds, modes and the FF skip on/off, on the same CUDA text;
-    and the tiles the kernel skipped with the skip on."""
+def instances(Q: int) -> tuple:
+    """The schain_fused instances that take Q states."""
+    return ("sweep", "tile") if Q <= 32 else ("tile",)
+
+
+def fused_call(sc, ct, inst: str):
+    """The call that runs schain_fused instance `inst` on these tables:
+    the wrapper for the instance it picks, else the tile hook."""
+    if inst == sc.instance_for(ct.n_states):
+        return sc.schain_fused
+    return sc._schain_fused_tile
+
+
+def sweep_edges(ct, text: torch.Tensor, mode: str) -> tuple:
+    """(tile edge inside a chunk, chunk edge, segment edge) of the sweep
+    instance on this text in `mode`, from the geometry the wrapper takes on
+    the text's card: the segment edge in the middle of the text, the end
+    of the 5th chunk past it, and half a chunk past the end of the 6th."""
     from rejit_tpu_torch.kernels import schain_cuda as sc
 
-    err, skipped, tiles, calls = 0, 0, 0, 0
-    for n in ns:
-        for name in seeds:
-            seed = (sc.solo_seed(ct, n) if name == "solo"
-                    else sc.neutral_seed(ct.n_states, text.device))
-            for mode in modes:
+    P = text.shape[0]
+    with torch.cuda.device(text.device):
+        blocks = sc._sweep_blocks(text.device.index, mode)
+    W, _, tpc, nseg = sc.sweep_geometry(ct.n_states, P, blocks)
+    check(tpc > 1, f"{P} bytes: one tile a chunk, no tile edge inside one")
+    chunk = tpc * sc.SWEEP_TILE
+    seg = nseg // 2 * (sc.SWEEP_THREADS // W) * chunk
+    return (min(P, seg + 6 * chunk + tpc // 2 * sc.SWEEP_TILE),
+            min(P, seg + 5 * chunk), min(P, seg))
+
+
+def fused_vs_plain(ct, text: torch.Tensor, ns, modes=("l", "li", "count"),
+                   seeds=("solo", "neutral"), block: int = K,
+                   edges: bool = False) -> dict:
+    """Max |schain_fused - schain_fused_plain| (L, I, count and G) over the
+    n values (with `edges`, also each mode's `sweep_edges`), seeds, modes,
+    the FF skip on/off and the kernel instances that take these tables, on
+    the same CUDA text; and the tiles each instance skipped with the skip
+    on."""
+    from rejit_tpu_torch.kernels import schain_cuda as sc
+
+    err, calls = 0, 0
+    insts = instances(ct.n_states)
+    skipped = dict.fromkeys(insts, 0)
+    tiles = dict.fromkeys(insts, 0)
+    ns_of = {m: tuple(ns) + (sweep_edges(ct, text, m) if edges else ())
+             for m in modes}
+    for mode in modes:
+        for n in ns_of[mode]:
+            for name in seeds:
+                seed = (sc.solo_seed(ct, n) if name == "solo"
+                        else sc.neutral_seed(ct.n_states, text.device))
                 want = sc.schain_fused_plain(ct, text, n, seed, block=block,
                                              mode=mode)
-                for use_ff in (True, False):
-                    stats = {}
-                    got = sc.schain_fused(ct, text, n, seed, block=block,
-                                          mode=mode, use_ff=use_ff,
-                                          stats=stats)
-                    err = max(err, max_abs_err(got, want))
-                    calls += 1
-                    if use_ff:
-                        skipped += int(stats["skipped_tiles"])
-                        tiles += stats["tiles"]
+                for inst in insts:
+                    run = fused_call(sc, ct, inst)
+                    for use_ff in (True, False):
+                        stats = {}
+                        got = run(ct, text, n, seed, block=block, mode=mode,
+                                  use_ff=use_ff, stats=stats)
+                        check(stats["instance"] == inst, "instance taken")
+                        err = max(err, max_abs_err(got, want))
+                        calls += 1
+                        if use_ff:
+                            skipped[inst] += int(stats["skipped_tiles"])
+                            tiles[inst] += stats["tiles"]
     torch.cuda.synchronize()
-    return {"max_abs_err": err, "calls": calls, "tiles": tiles,
-            "skipped_tiles": skipped}
+    return {"max_abs_err": err, "calls": calls, "instances": list(insts),
+            "ns": ns_of, "tiles": tiles, "skipped_tiles": skipped}
 
 
 def spans_of(out) -> list:
@@ -300,6 +348,54 @@ def kernel_bounds(n: int, P: int, Q: int, C: int) -> dict:
     }
 
 
+def kernel_split(fn, reps: int) -> dict:
+    """Device ms per call of each CUDA kernel fn() launches, from
+    torch.profiler (CUPTI); {"error": ...} when it records no device time,
+    which leaves the split not measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0)
+            if us > 0:
+                out[e.key] = us / reps / 1e3
+    except Exception as exc:  # the measurement only; no result depends on it
+        return {"error": repr(exc)}
+    return out or {"error": "no device time recorded"}
+
+
+def time_launches(rt, text: bytes, label: str, reps: int) -> dict:
+    """schain_fused per launch (summary, carry, emit) in both instances,
+    by the profiler. Run after every CUDA-event timing: once the profiler
+    has run, later launches in the process time slower."""
+    from rejit_tpu_torch.kernels import schain_cuda as sc
+
+    ct = dfa_tables(rt, MAIN_PATTERN)
+    t = padded(text, DEV)
+    n = len(text)
+    seed = sc.solo_seed(ct, n)
+
+    def fused(mode, inst):
+        run = fused_call(sc, ct, inst)
+        return lambda: run(ct, t, n, seed, block=K, mode=mode)
+
+    return {"label": label,
+            "schain_fused_launch_ms": kernel_split(fused("l", "sweep"), reps),
+            "schain_fused_count_launch_ms": kernel_split(
+                fused("count", "sweep"), reps),
+            "schain_fused_tile_launch_ms": kernel_split(fused("l", "tile"),
+                                                        reps)}
+
+
 def time_size(rt, text: bytes, label: str, reps: int,
               wall_reps: int) -> tuple:
     """Device times of each stage and entry-point walls at one text size."""
@@ -319,18 +415,28 @@ def time_size(rt, text: bytes, label: str, reps: int,
     plain_reps = max(1, reps // 4)
     res = {"label": label, "n": n, "P": P, "Q": Q, "C": C, "K": K}
 
-    # The fused route.
+    # The fused route: the sweep instance (the main path's, Q <= 32) and
+    # the tile instance (the design before it) in turns, per mode.
     seed = sc.solo_seed(ct, n)
-    staged = (dev_text, sc.stage_meta(ct, dev_text))
     NB, ntiles, tps, nseg = sc.geometry(Q, K, P)
+    W, sw_tiles, tpc, sw_nseg = sc.sweep_geometry(
+        Q, P, sc._sweep_blocks(dev_text.device.index, "l"))
+    res.update({"tiles": ntiles, "tile_bytes": NB * K, "segments": nseg,
+                "sweep_width": W, "sweep_tiles": sw_tiles,
+                "sweep_chunk_bytes": tpc * sc.SWEEP_TILE,
+                "sweep_segments": sw_nseg})
+
+    def fused(mode, inst="sweep", block=K):
+        run = fused_call(sc, ct, inst)
+        return lambda: run(ct, dev_text, n, seed, block=block, mode=mode)
+
+    for key, mode in (("", "l"), ("_count", "count"), ("_li", "li")):
+        t = {"sweep": [], "tile": []}
+        for inst in ("sweep", "tile", "tile", "sweep"):
+            t[inst].append(time_ms(fused(mode, inst), reps))
+        res[f"schain_fused{key}_ms"] = float(np.mean(t["sweep"]))
+        res[f"schain_fused{key}_tile_ms"] = float(np.mean(t["tile"]))
     res.update({
-        "tiles": ntiles, "tile_bytes": NB * K, "segments": nseg,
-        "schain_fused_ms": time_ms(
-            lambda: sc.schain_fused(ct, dev_text, n, seed, block=K,
-                                    mode="l"), reps),
-        "schain_fused_count_ms": time_ms(
-            lambda: sc.schain_fused(ct, dev_text, n, seed, block=K,
-                                    mode="count"), reps),
         "schain_fused_plain_ms": time_ms(
             lambda: sc.schain_fused_plain(ct, dev_text, n, seed, block=K,
                                           mode="l"), plain_reps, 1),
@@ -338,17 +444,18 @@ def time_size(rt, text: bytes, label: str, reps: int,
             lambda: sc.schain_fused_plain(ct, dev_text, n, seed, block=K,
                                           mode="count"), plain_reps, 1),
         "fused_l_arrays_ms": time_ms(
-            lambda: sc.l_arrays_device_staged(ct, staged, n, block=K), reps),
+            lambda: sc.l_arrays_device_staged(ct, dev_text, n, block=K),
+            reps),
     })
-    # The fused block K (Config.fused_block), the default 32 beside others.
-    res["schain_fused_ms_by_block"] = {
-        k: time_ms(lambda: sc.schain_fused(ct, dev_text, n, seed, block=k,
-                                           mode="l"), reps)
-        for k in (16, 32, 64)
-    }
+    # The fused block K (Config.fused_block), the default 32 beside others:
+    # the sweep instance does not read it, the tile instance's sub-blocks
+    # are K bytes.
+    for inst in ("sweep", "tile"):
+        res[f"schain_fused_{inst}_ms_by_block"] = {
+            k: time_ms(fused("l", inst, k), reps) for k in (16, 32, 64)}
     dc.reset_launches()
     sc.reset_launches()
-    sc.l_arrays_device_staged(ct, staged, n, block=K)
+    sc.l_arrays_device_staged(ct, dev_text, n, block=K)
     res["schain_fused_launches_per_call"] = sc.LAUNCHES["schain_fused"]
 
     # The split route (as measured before the fused route existed).
@@ -378,7 +485,7 @@ def time_size(rt, text: bytes, label: str, reps: int,
         res[name + "_bound_by"] = b["bound_by"]
     # suffix scan: its summaries read once and its suffixes written once
     res["suffix_scan_bound_ms"] = 6 * v.nb * Q * 4 / HBM_BYTES_PER_S * 1e3
-    del v, summ, suf, staged, dev_text
+    del v, summ, suf, dev_text
 
     # Entry points end to end (host clock, after a warm-up).
     corpus = rt.stage(text, DEV)
@@ -441,7 +548,9 @@ def sparse_text(size: int, seed: int) -> bytes:
 
 def literal_sets(rng) -> list:
     """(lits, pids) sets of 1, 3, 9 and 15 distinct literals, lengths 1 to
-    128, over the alphabet of `literal_text`, pids below 16."""
+    128, and a set of 1-, 3-, 4-, 5- and 8-byte literals (around a word
+    and the kernel's 8-byte prefix), over the alphabet of `literal_text`,
+    pids below 16."""
     alphabet = np.frombuffer(b"ab c", np.uint8)
     lengths = (1, 2, 3, 5, 8, 17, 31, 64, 100, 127, 128)
     sets = []
@@ -455,6 +564,10 @@ def literal_sets(rng) -> list:
         lits = tuple(sorted(lits))
         sets.append((lits, tuple(int(p) for p in
                                  rng.integers(0, 16, size=len(lits)))))
+    lits = tuple(sorted({rng.choice(alphabet, size=m).tobytes()
+                         for m in (1, 3, 4, 4, 5, 5, 8, 8)}))
+    sets.append((lits, tuple(int(p) for p in
+                             rng.integers(0, 16, size=len(lits)))))
     return sets
 
 
@@ -471,7 +584,7 @@ def literal_text(rng, sets, size: int) -> np.ndarray:
 
 def literal_spans_vs_plain(xc, text: np.ndarray, sets) -> dict:
     """Max |literal_spans - literal_spans_plain| (keys and counts) on the
-    same CUDA rows, at caps 0, 2, 4 and 16 and n at P, P-3, a row edge, a
+    same CUDA rows, at caps 0, 2, 4 and 16, n at P, P-3, a row edge, a
     block edge (32 rows), 1 and 0."""
     rows = torch.from_numpy(xc.pad_rows(text, len(text), xc.CHL)).to(DEV)
     P = rows.numel()
@@ -479,13 +592,13 @@ def literal_spans_vs_plain(xc, text: np.ndarray, sets) -> dict:
     for lits, pids in sets:
         for cap in (0, 2, 4, 16):
             for n in (P, P - 3, 777 * xc.CHL, 13 * 32 * xc.CHL, 1, 0):
-                got = xc.literal_spans(rows, n, lits=lits, pids=pids,
-                                       cap=cap)
                 want = xc.literal_spans_plain(rows, n, lits=lits, pids=pids,
                                               cap=cap)
+                got = xc.literal_spans(rows, n, lits=lits, pids=pids,
+                                       cap=cap)
                 err = max(err, max_abs_err(got, want))
-                max_count = max(max_count, int(want[1].max()))
                 calls += 1
+                max_count = max(max_count, int(want[1].max()))
     torch.cuda.synchronize()
     return {"max_abs_err": err, "calls": calls, "P": P,
             "max_row_count": max_count}
@@ -706,16 +819,22 @@ def main() -> int:
     for k in e:
         errs[k] = max(errs[k], e[k])
 
-    # schain_fused: 6 sets of the split phase plus two large-Q sets (82 and
+    # schain_fused: 6 sets of the split phase (Q = 2..7), a 14- and a
+    # 30-state set (sweep widths 16 and 32) and two large-Q sets (82 and
     # 242 states: 16 and 8 sub-blocks a tile), dense and sparse texts.
     long_words = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz" * 4 + b" ",
                                np.uint8)
     fcases = cases[:-1] + [
+        (r"\b(the|and|for|with|from)\b", rb"\b(the|and|for|with|from)\b",
+         np.frombuffer(b"theandforwithfrom  ", np.uint8)),
+        (r"\b[a-z]{20,28}\b", rb"\b[a-z]{20,28}\b",
+         np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)),
         (r"\b[a-z]{40,80}\b", rb"\b[a-z]{40,80}\b", long_words),
         (r"\b[a-z]{100,240}\b", rb"\b[a-z]{100,240}\b", long_words),
     ]
     sparse_small = sparse_text(200_000, seed=11)
-    skipped_total = 0
+    skipped_total = {"sweep": 0, "tile": 0}
+    fused_calls = {"sweep": 0, "tile": 0}
     for j, (label, pats, chars) in enumerate(fcases):
         ct = dfa_tables(rt, pats)
         for kind in ("dense", "sparse"):
@@ -728,7 +847,9 @@ def main() -> int:
             emit({"phase": "fused_vs_plain", "patterns": label, "text": kind,
                   "P": P, "Q": ct.n_states, "skip_plan": ct.plan.skip, **e})
             errs["schain_fused"] = max(errs["schain_fused"], e["max_abs_err"])
-            skipped_total += e["skipped_tiles"]
+            for inst in e["instances"]:
+                skipped_total[inst] += e["skipped_tiles"][inst]
+                fused_calls[inst] += 1
     # Other fused blocks K (Config.fused_block), a power of two or not.
     for pats in (MAIN_PATTERN, TOKENIZER):
         ct = dfa_tables(rt, pats)
@@ -739,17 +860,22 @@ def main() -> int:
             emit({"phase": "fused_vs_plain", "patterns": str(pats),
                   "text": "mixed", "block": kb, "P": P, **e})
             errs["schain_fused"] = max(errs["schain_fused"], e["max_abs_err"])
-    ct = dfa_tables(rt, MAIN_PATTERN)
-    for kind, text in (("main", main_text), ("sparse", sp_text)):
-        t = padded(text, DEV)
-        P = t.shape[0]
-        e = fused_vs_plain(ct, t, (P, P - 3), modes=("l", "count"),
-                           seeds=("solo",))
-        emit({"phase": "fused_vs_plain", "patterns": "main path shapes",
-              "text": kind, "P": t.shape[0], **e})
-        errs["schain_fused"] = max(errs["schain_fused"], e["max_abs_err"])
-        if kind == "sparse":
-            sparse_skips = e
+    # The 10 MB texts, where a sweep chunk is several tiles: the main
+    # pattern (W = 8) and a 17-state suffix set (W = 32), at the sweep
+    # instance's tile, chunk and segment edges of each mode.
+    for pats in (MAIN_PATTERN, rb"\b\w+(ing|tion|ment|ness)\b"):
+        ct = dfa_tables(rt, pats)
+        for kind, text in (("main", main_text), ("sparse", sp_text)):
+            t = padded(text, DEV)
+            P = t.shape[0]
+            e = fused_vs_plain(ct, t, (P, P - 3), edges=True)
+            emit({"phase": "fused_vs_plain", "patterns": str(pats),
+                  "text": kind, "P": P, "Q": ct.n_states, **e})
+            errs["schain_fused"] = max(errs["schain_fused"], e["max_abs_err"])
+            if kind == "sparse" and pats == MAIN_PATTERN:
+                sparse_skips = e
+    emit({"phase": "fused_instances", "cases": fused_calls,
+          "skipped_tiles": skipped_total})
     # literal_spans: 4 literal sets x 4 caps x 6 n; and at the keyword
     # path's shapes on the main text.
     sets = literal_sets(rng)
@@ -774,12 +900,16 @@ def main() -> int:
     errs["scan1d"] = e["max_abs_err"]
     check(all(v == 0 for v in errs.values()),
           f"kernels differ from their plain versions: {errs}")
-    check(skipped_total > 0 and sparse_skips["skipped_tiles"] > 0,
+    check(all(v > 0 for v in fused_calls.values()),
+          f"a schain_fused instance was never held: {fused_calls}")
+    check(all(v > 0 for v in skipped_total.values())
+          and all(v > 0 for v in sparse_skips["skipped_tiles"].values()),
           "the FF tile skip was never taken")
 
     # 3. The main path at the published config-3 size: the fused route.
     p = rt.Pattern(MAIN_PATTERN, device=DEV)
-    check(p.fused, "main pattern not on the fused route")
+    check(p.fused and sc.instance_for(p.ct.n_states) == "sweep",
+          "main pattern not on the fused route's sweep instance")
     reset()
     t0 = time.perf_counter()
     out = p.match_all_arrays(main_text)
@@ -806,8 +936,7 @@ def main() -> int:
     # overlap-free pattern.
     reset()
     t = padded(main_text, DEV)
-    kcount = int(sc.count_device_staged(p.ct, (t, sc.stage_meta(p.ct, t)),
-                                        len(main_text), block=K))
+    kcount = int(sc.count_device_staged(p.ct, t, len(main_text), block=K))
     check(kcount == len(got), f"count mode {kcount} != {len(got)}")
     # `matching` alone takes the literal engine; the DFA engine is forced
     # here to hold the fused count route.
@@ -1015,7 +1144,15 @@ def main() -> int:
             CONFIG1_PATTERN, big1), "config 1 at 256 MiB: spans differ")
         tc256 = time_config1(rt, big1, "256MiB", reps=3)
         emit({"phase": "times_config1", **tc256, "equal_to_re": True})
+        del big1
         times = {**t10, **tl10}
+        for size, label, reps in ((10_000_000, "10MB", 20),
+                                  (256 << 20, "256MiB", 5)):
+            text = make_corpus(size, seed=2, needle=b"matching",
+                               density=0.01)
+            emit({"phase": "times_per_launch",
+                  **time_launches(rt, text, label, reps)})
+            del text
 
     kernels = []
     path_launches = {

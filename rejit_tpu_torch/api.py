@@ -119,9 +119,8 @@ class DeviceCorpus:
 
     Pass it anywhere a text is accepted. The padded device text is cached
     by length (any multiple of a route's grain with enough zero tail serves
-    it; a new padding is made on the device, not uploaded again), and each
-    pattern's staging meta by its tables. The host bytes stay available
-    for host paths.
+    it; a new padding is made on the device, not uploaded again). The host
+    bytes stay available for host paths.
     """
 
     def __init__(self, text: TextLike, device: DeviceLike = None):
@@ -130,7 +129,6 @@ class DeviceCorpus:
         self.device = resolve_device(device)
         self.uploads = 0      # host -> device copies made
         self._padded = {}     # P -> padded uint8 device text
-        self._meta = {}       # (static tables, P) -> start state at P
 
     def _padded_to(self, P: int, fits) -> torch.Tensor:
         """A cached padded text whose length `fits`, else one of P bytes."""
@@ -161,14 +159,6 @@ class DeviceCorpus:
             lambda P: P % grain == 0 and P - self.n >= min_tail,
         )
         return t, t.shape[0]
-
-    def staged_for(self, ct: pipeline.DeviceTables, grain: int):
-        """(padded text, start state at its end) for the fused route."""
-        text = self.padded(grain)
-        key = (ct.static, text.shape[0])
-        if key not in self._meta:
-            self._meta[key] = schain_cuda.stage_meta(ct, text)
-        return text, self._meta[key]
 
 
 def stage(text: TextLike, device: DeviceLike = None) -> DeviceCorpus:
@@ -379,13 +369,6 @@ class Pattern:
             return self._corpus(corpus).padded(grain)
         return _upload_padded(text, _pad_len(len(text), grain), self.device)
 
-    def _staged(self, text: np.ndarray, corpus):
-        """(padded text, start state at its end) for the fused kernel."""
-        if corpus is not None:
-            return self._corpus(corpus).staged_for(self.ct, self.fused_block)
-        dev_text = self._padded_text(text, None, self.fused_block)
-        return dev_text, schain_cuda.stage_meta(self.ct, dev_text)
-
     def _literal_ext(self, text: np.ndarray, corpus, max_m: int = 0):
         """(device text, P) for the literal engine: P positions scanned and
         at least max_m (default: the longest literal's length) zero bytes
@@ -399,7 +382,8 @@ class Pattern:
         return torch.from_numpy(ext).to(self.device), P
 
     def _l_i_device(self, text: np.ndarray, corpus=None):
-        """(L, I) tensors on the pattern's device, length P+1 (-1 past n)."""
+        """(L, I) tensors on the pattern's device, length P+1 (-1 past n).
+        I is None on the fused route with one pattern (every pid is 0)."""
         n = len(text)
         if self.engine in ("classrun", "classlit"):
             dev_text = self._padded_text(text, corpus, ELEM_GRAIN)
@@ -425,7 +409,7 @@ class Pattern:
             )
         if self.fused:
             return schain_cuda.l_arrays_device_staged(
-                self.ct, self._staged(text, corpus), n,
+                self.ct, self._padded_text(text, corpus, self.fused_block), n,
                 block=self.fused_block, use_ff=self.config.use_ff,
             )
         K = self.config.block_size
@@ -669,7 +653,8 @@ class Pattern:
             # pure device reduction and no L/I array is written.
             with Timer() as t_all:
                 cnt = int(schain_cuda.count_device_staged(
-                    self.ct, self._staged(t, corpus), len(t),
+                    self.ct, self._padded_text(t, corpus, self.fused_block),
+                    len(t),
                     block=self.fused_block, use_ff=self.config.use_ff,
                 ))
             self._record("match_all_count", len(t), cnt, t_all.elapsed,

@@ -132,3 +132,28 @@ def byte_flags(p: FusedPlan) -> np.ndarray:
         for lo, hi in runs:
             flags[lo:hi + 1] |= bit
     return flags
+
+
+def sweep_table(st: tuple, W: int) -> np.ndarray:
+    """(256, W) uint32 byte table of the fused kernel's sweep instance
+    (kernels/csrc/schain_fused.cu): for byte b and state q < Q,
+    next | (accept + 1) << 8 | byte flags << 16 | start state after b << 24.
+    Lanes q >= Q (no state) take the start state after b as their next
+    state and never accept: the first of them reads each boundary's L."""
+    cls_runs, ctx_runs, nxt_cols, acc_cols, start_by_ctx, _ = st
+    Q = len(nxt_cols[0])
+    if not 1 <= Q <= W <= 32:
+        raise ValueError(f"{Q} states do not fit a sweep of width {W}")
+    cls = np.zeros(256, dtype=np.int64)
+    ctx = np.zeros(256, dtype=np.int64)
+    for runs, out in ((cls_runs, cls), (ctx_runs, ctx)):
+        for lo, hi, v in runs:
+            out[lo:hi + 1] = v
+    start = np.asarray(start_by_ctx, dtype=np.int64)[ctx]
+    nxt = np.asarray(nxt_cols, dtype=np.int64)[cls]   # (256, Q)
+    acc = np.asarray(acc_cols, dtype=np.int64)[cls] + 1
+    nxt = np.concatenate([nxt, np.repeat(start[:, None], W - Q, 1)], 1)
+    acc = np.concatenate([acc, np.zeros((256, W - Q), np.int64)], 1)
+    flags = byte_flags(plan(st)).astype(np.int64)
+    t = nxt | acc << 8 | (flags << 16 | start << 24)[:, None]
+    return t.astype(np.uint32)

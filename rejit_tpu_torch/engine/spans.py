@@ -1,6 +1,9 @@
 """Span emission from (L, I) tensors and start masks: candidate compaction
 and the run-partition (tokenizer) selection.
 
+An I of None stands for one pattern: every candidate's pattern id is 0 (the
+fused route writes no I array then).
+
 Candidates (boundaries with L[s] >= 0) are compacted on the device with
 `torch.nonzero`, so the host receives O(#candidates) values, not O(text).
 The JAX package peels rows with compares and selects instead
@@ -9,7 +12,7 @@ does not need.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +23,7 @@ def candidate_count(L: torch.Tensor) -> torch.Tensor:
 
 
 def candidates_host(
-    L: torch.Tensor, I: torch.Tensor
+    L: torch.Tensor, I: Optional[torch.Tensor]
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Host (pos, end, pid) int32 arrays of the candidates, sorted by pos."""
     c = int(candidate_count(L))
@@ -32,17 +35,15 @@ def candidates_host(
         # Dense result (e.g. tokenizers: ~every boundary a candidate): a
         # wholesale transfer + host flatnonzero is the honest O(n) path.
         Lh = L.cpu().numpy()
-        Ih = I.cpu().numpy()
         pos = np.flatnonzero(Lh >= 0).astype(np.int32)
-        return pos, Lh[pos], Ih[pos]
+        pid = (np.zeros(len(pos), np.int32) if I is None
+               else I.cpu().numpy()[pos])
+        return pos, Lh[pos], pid
     pos = torch.nonzero(L >= 0).squeeze(1)
     end = L.index_select(0, pos)
-    pid = I.index_select(0, pos)
-    return (
-        pos.to(torch.int32).cpu().numpy(),
-        end.cpu().numpy(),
-        pid.cpu().numpy(),
-    )
+    pid = (np.zeros(len(pos), np.int32) if I is None
+           else I.index_select(0, pos).cpu().numpy())
+    return pos.to(torch.int32).cpu().numpy(), end.cpu().numpy(), pid
 
 
 def mask_positions(mask: torch.Tensor) -> np.ndarray:
@@ -63,26 +64,31 @@ def first_candidate(mask: torch.Tensor, n: int) -> int:
     return int(torch.where(m[i], i, n))
 
 
-def partition_select_mask(L: torch.Tensor, I: torch.Tensor) -> torch.Tensor:
+def partition_select_mask(L: torch.Tensor,
+                          I: Optional[torch.Tensor]) -> torch.Tensor:
     """Elementwise non-overlap selection for run-partition pattern sets
     (analysis.is_run_partition): a candidate is selected iff it starts a
     maximal class run — position 0 or a class change."""
     cand = L >= 0
+    if I is None:  # one pattern: a run starts where the previous is no hit
+        return cand & ~torch.cat([cand.new_zeros(1), cand[:-1]])
     prev = torch.cat([torch.full((1,), -2, dtype=I.dtype, device=I.device),
                       I[:-1]])
     return cand & (I != prev)
 
 
-def partition_count(L: torch.Tensor, I: torch.Tensor) -> torch.Tensor:
+def partition_count(L: torch.Tensor,
+                    I: Optional[torch.Tensor]) -> torch.Tensor:
     """MatchAllCount for run-partition patterns: a device reduction over
     the elementwise selection mask (no L/I host transfer)."""
     return torch.count_nonzero(partition_select_mask(L, I))
 
 
-def partition_pid_bytes(L: torch.Tensor, I: torch.Tensor) -> torch.Tensor:
+def partition_pid_bytes(L: torch.Tensor,
+                        I: Optional[torch.Tensor]) -> torch.Tensor:
     """uint8 per-position pattern id (255 = no candidate): the run-partition
     result in 1 byte per position instead of the 8 of the (L, I) pair."""
-    return torch.where(L >= 0, I, 255).to(torch.uint8)
+    return torch.where(L >= 0, 0 if I is None else I, 255).to(torch.uint8)
 
 
 def partition_arrays_host(pid_u8: np.ndarray, n: int):

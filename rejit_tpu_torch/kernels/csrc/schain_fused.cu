@@ -1,16 +1,16 @@
 // The fused DFA match for Hopper (sm_90a): schain_fused.
 //
 // Replaces rejit_tpu/kernels/schain_pallas.py:call_fused (_kernel,
-// _kernel_heavy): the whole DFA match of one padded uint8 text in one call,
-// reading the text bytes themselves (no class or start-state arrays in
-// device memory). For every boundary s <= n it gives L[s], the longest
-// match end from s (-1 for none), and in the multi-pattern mode I[s], its
-// pattern id; or, in the count mode, the number of boundaries with
-// L >= 0. It also gives G, the whole text's (f, m, i) state-map summary
-// composed with the caller's seed (the suffix beyond the text: the EOT
-// accepts for a standalone text). rejit_tpu_torch/kernels/schain_cuda.py
-// holds the wrapper and the plain PyTorch version the kernel is held
-// against.
+// _kernel_heavy): the whole DFA match of one padded uint8 text of P bytes in
+// one call, reading the text bytes themselves (no class or start-state
+// arrays in device memory). For every boundary s <= P it gives L[s], the
+// longest match end from s (-1 for none and for s > n), and in the
+// multi-pattern mode I[s], its pattern id; or, in the count mode, the number
+// of boundaries with L >= 0. The caller's buffers hold all P + 1 boundaries,
+// boundary P from the seed (the EOT accepts for a standalone text). It also
+// gives G, the whole text's (f, m, i) state-map summary composed with the
+// caller's seed. rejit_tpu_torch/kernels/schain_cuda.py holds the wrapper
+// and the plain PyTorch version the kernel is held against.
 //
 // The algebra is the split pipeline's (dfa_phases.cu): a summary maps each
 // start state q to (f = end state, m = last accepting position, i = its
@@ -20,38 +20,63 @@
 //
 // The TPU kernel ran its grid right to left on one core and carried the
 // suffix across grid steps in SMEM. CUDA blocks run concurrently and in no
-// order, so the carry is explicit, in three launches:
-//   1. schain_tile_kernel<kSummary>: each CUDA block owns a segment of
-//      consecutive tiles and composes their summaries into the segment's;
-//   2. schain_carry_kernel: one CUDA block composes the segment summaries
-//      right to left (a doubling scan), seeded with `seed`, into each
-//      segment's exclusive suffix, and G;
-//   3. schain_tile_kernel<kEmit*|kCount>: each CUDA block walks its tiles
-//      right to left from its segment's suffix and emits L (and I) or
-//      counts.
-// Inside a tile of NB sub-blocks of K bytes: classes and start states are
-// staged in shared memory from the bytes (256-entry tables there too, with
-// the whole Q*C table: C*Q <= 4096 words); one thread per (sub-block,
-// state) runs its K bytes (phase 1); a doubling scan over the NB
-// sub-blocks in shared memory gives each sub-block's exclusive suffix; one
-// thread per boundary runs to its sub-block end and splices that suffix at
-// its end state by a direct index (phase 3, as dfa_phase3).
+// order, so the carry is explicit, in three launches: each CUDA block
+// summarises its segment of the text; one block composes the segment
+// summaries right to left (schain_carry_kernel, a doubling scan seeded with
+// `seed`) into each segment's exclusive suffix, and G; each CUDA block then
+// walks its segment right to left from that suffix and emits L (and I) or
+// counts. Two instances of the two segment passes:
+//
+// The sweep instance (Q <= 32; sweep_summary_kernel, sweep_carry_kernel,
+// sweep_emit_kernel). A group of W lanes (W the power of two >= Q) holds
+// one state per lane; a CUDA block's segment is cut into one chunk of whole
+// 128-byte tiles per group. The byte table T (256 x W: next | accept+1 << 8
+// | skip flags << 16 | start state after the byte << 24, built by the
+// wrapper) is staged in shared memory as 32 / W copies side by side, so
+// the lanes of each group read their own banks. Pass 1 runs each state
+// forward through the chunk (one table load per step) and stops once every
+// state is in the dead state; a doubling scan over the groups gives each
+// chunk's exclusive suffix inside the segment (kept for pass 3) and the
+// segment's summary. The carry pass composes segments in registers, a
+// warp per run of segments. Pass 3 composes the chunk's suffix with the
+// segment's carry and sweeps the chunk right to left: at byte j lane q
+// reads T[byte][q] (not on the chain, so it is loaded early), takes the later
+// vector's m (and i) at the next state by __shfl_sync, and keeps it if it
+// is a match, else this byte's accept. The first idle lane (q = Q) steps
+// to the start state after the byte, so it reads boundary j+1's L in its
+// own shuffle. That is W independent steps per byte, where the tile
+// instance takes 2*Q + (K+1)/2 dependent ones. The groups of a warp step
+// in lockstep (whole-warp shuffles of width W). Text is read 16 bytes at a
+// time; L values are stored 16 at a time.
+//
+// The tile instance (Q <= 256; schain_tile_kernel): per CUDA block, tiles
+// of NB sub-blocks of K bytes, classes and start states staged in shared
+// memory from the bytes (256-entry tables there too, with the whole Q*C
+// table: C*Q <= 4096 words); one thread per (sub-block, state) runs its K
+// bytes (phase 1); a doubling scan over the NB sub-blocks in shared memory
+// gives each sub-block's exclusive suffix; one thread per boundary runs to
+// its sub-block end and splices that suffix at its end state by a direct
+// index (phase 3, as dfa_phase3).
 //
 // The fast-forward tile skip (the TPU's chunk skip, schain_pallas.py
-// _kernel): a tile wholly below n whose first byte sends every state to
-// the dead state and whose other bytes are silent has the summary
-// (dead, first-byte accept position, its pid) and L = -1 everywhere but at
-// its first boundary. Both passes take it with no automaton steps; the
-// emit pass also needs the carry's m at the dead state to be -1, which
-// makes the shortcut exact for any seed.
+// _kernel), in both instances: a tile wholly below n whose first byte
+// sends every state to the dead state and whose other bytes are silent has
+// the summary (dead, first-byte accept position, its pid) and L = -1
+// everywhere but at its edge boundary. The emit pass takes it with no
+// automaton steps when the carry's m at the dead state is -1, which makes
+// the shortcut exact for any seed; the tile instance's summary pass takes
+// it too, the sweep instance's pass 1 stops at the all-dead state instead.
 //
 // Bounds on an H100: the function reads 1 byte of text per text byte and
 // writes 4 (L) or 8 (L and I) or nothing (count); it needs Q automaton
 // steps per byte (the backward composition over the Q states). At the
 // Config-3 sizes (Q = 6) the L modes are bounded by bytes, the count mode
-// by operations. This design takes 2*Q + (K+1)/2 steps per byte (phase 1
-// in both passes, phase 3 in the emit pass) and no device-memory traffic
-// beyond the text, the outputs and (nseg, 3, Q) segment summaries.
+// by operations. The sweep instance takes W steps per byte in pass 3, each
+// one shared-memory load and one shuffle (three in L+I mode), and pass 1's
+// steps until every state is dead; the shared-memory and shuffle pipe
+// bounds it. Device-memory traffic beyond the
+// text and the outputs: the (nseg, 3, Q) segment summaries and, for the
+// sweep, 3 KB of chunk suffixes per segment.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,8 +99,8 @@ struct Params {
   const int* flags;      // (256,) kSilent | kUniform per byte
   int* seg_sum;          // (nseg, 3, Q) segment summaries (pass 1 out)
   const int* seg_x;      // (nseg, 3, Q) segment exclusive suffixes (pass 3 in)
-  int* L;                // (P,)
-  int* I;                // (P,) in kEmitLI
+  int* L;                // (P+1,)
+  int* I;                // (P+1,) in kEmitLI
   int* counts;           // [0] count, [1] tiles skipped by pass 3
   int Q, C, K, NB, P, n;
   int start0;            // start state at boundary 0 (the begin context)
@@ -152,6 +177,18 @@ __global__ void schain_tile_kernel(Params p) {
   const int t_lo = seg * p.tiles_per_seg;
   const int t_hi = min(t_lo + p.tiles_per_seg, p.ntiles);
   int cnt = 0, skipped = 0;
+
+  if (kEmit && seg == gridDim.x - 1 && tid == 0) {
+    // Boundary P: the last segment's carry is the seed.
+    const int st = s_start[p.text[p.P - 1]];
+    const int m = n == p.P ? cm[st] : -1;
+    if (kMode == kCount) {
+      cnt += m >= 0;
+    } else {
+      p.L[p.P] = m;
+      if (kMode == kEmitLI) p.I[p.P] = n == p.P ? ci[st] : -1;
+    }
+  }
 
   for (int t = t_hi - 1; t >= t_lo; --t) {
     const int base = t * tile_bytes;
@@ -457,6 +494,485 @@ cudaError_t launch_tiles(const Params& p, int nseg, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The sweep instance (Q <= 32)
+// ---------------------------------------------------------------------------
+
+constexpr int kSweepThreads = 256;      // threads of a sweep block
+constexpr int kSweepTile = 128;         // bytes of a skip tile; chunks are whole tiles
+constexpr int kSweepMaxQ = 32;
+constexpr int kMaxSegments = 1024;
+
+struct SweepParams {
+  const uint8_t* text;   // (P,) padded text, 16-byte aligned
+  const uint32_t* T;     // (256, W) byte table, see the top of the file
+  int* seg_sum;          // (nseg, 3, Q) segment summaries (pass 1 out)
+  const int* seg_x;      // (nseg, 3, Q) segment exclusive suffixes (pass 3 in)
+  int* chunk_x;          // (nseg, 3, kSweepThreads) in-segment suffix per lane
+  int* L;                // (P+1,)
+  int* I;                // (P+1,) in kEmitLI
+  int* counts;           // [0] count, [1] tiles skipped by pass 3
+  int Q, W, P, n;
+  int start0;            // start state at boundary 0 (the begin context)
+  int dead;              // dead state, or -1
+  int skip;              // the FF tile skip is on
+  int ntiles, tiles_per_chunk;
+};
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// s_T[b * 32 + s] = T[b, s % W]: 32 / W copies of each byte's row.
+__device__ __forceinline__ void stage_table(uint32_t* s_T, const uint32_t* T,
+                                            int W) {
+  for (int x = threadIdx.x; x < 256 * 32; x += kSweepThreads)
+    s_T[x] = __ldg(T + (x >> 5) * W + (x & (W - 1)));
+}
+
+// Text bytes pos .. pos+15 (pos a multiple of 16), zeros past P.
+__device__ __forceinline__ uint4 load16(const uint8_t* text, int pos, int P) {
+  if (pos + 16 <= P) return __ldg(reinterpret_cast<const uint4*>(text + pos));
+  uint32_t w0 = 0, w1 = 0, w2 = 0, w3 = 0;
+  for (int b = 0; b < 16 && pos + b < P; ++b) {
+    const uint32_t x = (uint32_t)text[pos + b] << (8 * (b & 3));
+    if (b < 4) w0 |= x; else if (b < 8) w1 |= x; else if (b < 12) w2 |= x;
+    else w3 |= x;
+  }
+  return make_uint4(w0, w1, w2, w3);
+}
+
+__device__ __forceinline__ int byte_of(const uint4& v, int b) {
+  const uint32_t w = b < 4 ? v.x : b < 8 ? v.y : b < 12 ? v.z : v.w;
+  return (w >> (8 * (b & 3))) & 255;
+}
+
+// [lo, hi) of group g's chunk in this block's segment; false past the text.
+__device__ __forceinline__ bool chunk_range(const SweepParams& p, int g,
+                                            int& lo, int& hi) {
+  const long long t0 =
+      ((long long)blockIdx.x * (kSweepThreads / p.W) + g) * p.tiles_per_chunk;
+  if (t0 >= p.ntiles) {
+    lo = hi = 0;
+    return false;
+  }
+  lo = (int)(t0 * kSweepTile);
+  hi = (int)min((long long)p.P, (t0 + p.tiles_per_chunk) * kSweepTile);
+  return true;
+}
+
+// Pass 1: chunk summaries (each state forward through the chunk, up to n,
+// until every state is dead), the in-segment exclusive suffix of every
+// chunk (X_g = S_{g+1} o ... o S_{G-1}, identity past the last chunk, by a
+// doubling scan over the groups) into chunk_x, and the segment's summary
+// S_0 o X_0 into seg_sum.
+__global__ void __launch_bounds__(kSweepThreads)
+sweep_summary_kernel(SweepParams p) {
+  __shared__ uint32_t s_T[256 * 32];
+  __shared__ int s_x[2][3][kSweepThreads];
+  const int tid = threadIdx.x, W = p.W, G = kSweepThreads / W;
+  const int g = tid / W, q = tid & (W - 1);
+  const int gl = (tid & 31) & ~(W - 1);
+  stage_table(s_T, p.T, W);
+  __syncthreads();
+
+  int lo, hi;
+  chunk_range(p, g, lo, hi);
+  hi = min(hi, p.n);               // steps at or past n are the identity
+  const bool idle = q >= p.Q;      // lanes past Q: no state of the DFA
+  int S = q, m = -1, i = -1;
+  // The groups of a warp step together, 16 bytes at a time, and stop
+  // when each has finished its chunk or has every state dead (the dead
+  // state absorbs and never accepts: nothing further changes).
+  for (int pos = lo; pos < lo + p.tiles_per_chunk * kSweepTile; pos += 16) {
+    const int left = hi - pos;
+    if (left > 0) {
+      const uint4 v = load16(p.text, pos, p.P);
+#pragma unroll
+      for (int b = 0; b < 16; ++b) {
+        if (b < left) {
+          const uint32_t e = s_T[byte_of(v, b) * 32 + gl + S];
+          const int a1 = (e >> 8) & 255;
+          if (a1) {
+            m = pos + b;
+            i = a1 - 1;
+          }
+          S = e & 255;
+        }
+      }
+    }
+    if (__all_sync(kFull, idle || left <= 16 ||
+                              (p.dead >= 0 && S == p.dead)))
+      break;
+  }
+
+  s_x[1][0][tid] = S;
+  s_x[1][1][tid] = m;
+  s_x[1][2][tid] = i;
+  __syncthreads();
+  int xf = q, xm = -1, xi = -1;
+  if (g + 1 < G) {
+    xf = s_x[1][0][tid + W];
+    xm = s_x[1][1][tid + W];
+    xi = s_x[1][2][tid + W];
+  }
+  s_x[0][0][tid] = xf;
+  s_x[0][1][tid] = xm;
+  s_x[0][2][tid] = xi;
+  __syncthreads();
+  int cur = 0;
+  for (int d = 1; d < G; d *= 2) {
+    if (g + d < G) {
+      const int o = (g + d) * W + xf;
+      const int mg = s_x[cur][1][o];
+      if (mg >= 0) {
+        xm = mg;
+        xi = s_x[cur][2][o];
+      }
+      xf = s_x[cur][0][o];
+    }
+    cur ^= 1;
+    s_x[cur][0][tid] = xf;
+    s_x[cur][1][tid] = xm;
+    s_x[cur][2][tid] = xi;
+    __syncthreads();
+  }
+  int* cx = p.chunk_x + (size_t)blockIdx.x * 3 * kSweepThreads;
+  cx[tid] = xf;
+  cx[kSweepThreads + tid] = xm;
+  cx[2 * kSweepThreads + tid] = xi;
+  if (g == 0 && q < p.Q) {
+    const int mg = s_x[cur][1][S];   // X_0 sits at tid = state in group 0
+    int* out = p.seg_sum + (size_t)blockIdx.x * 3 * p.Q;
+    out[q] = s_x[cur][0][S];
+    out[p.Q + q] = mg >= 0 ? mg : m;
+    out[2 * p.Q + q] = mg >= 0 ? s_x[cur][2][S] : i;
+  }
+}
+
+// Byte b of a 16-byte piece, zero-extended (one PRMT).
+__device__ __forceinline__ uint32_t piece_byte(const uint4& v, int b) {
+  const uint32_t w = b < 4 ? v.x : b < 8 ? v.y : b < 12 ? v.z : v.w;
+  return __byte_perm(w, 0, 0x4440 | (b & 3));
+}
+
+// One right-to-left sweep of the 128-byte tile at tb, by all 32 lanes of
+// a warp together (shuffles of the whole warp, width W): V holds m (and
+// i) per lane; f is not needed here, since only the m and i of the later
+// vector are read. Boundaries (tb, te] are stored. kCheck: bytes at or
+// past min(te, n) are the identity (a group whose tile is empty has
+// te <= tb); else every byte of the tile lies below te and n.
+// With kLane, lane `emit` (an idle lane, q = Q < W) has the start state
+// after each byte as its next state and no accept, so its update shuffle
+// reads V at the boundary's start state: after byte j it holds L[j+1]
+// (and I[j+1]), with no shuffle of its own. Else each boundary takes one
+// more shuffle. The writing lane keeps a 16-byte piece's values in
+// registers and stores them as four 16-byte words (L + 1 is 16-byte
+// aligned). s_col: this lane's column of the byte table, as bytes (a
+// byte's row is 128 bytes on).
+template <int kMode, bool kLane, bool kCheck>
+__device__ __forceinline__ void sweep_tile(const SweepParams& p,
+                                           const char* s_col, int W, int q,
+                                           int emit, int tb, int te, int& vm,
+                                           int& vi, int& cnt) {
+  const int lim = min(te, p.n);
+  const int writer = kLane ? emit : 0;
+  for (int pos = tb + kSweepTile - 16; pos >= tb; pos -= 16) {
+    const uint4 v = load16(p.text, pos, p.P);
+    int aL[16], aI[16];
+#pragma unroll
+    for (int b = 15; b >= 0; --b) {
+      const int j = pos + b;
+      const bool live = !kCheck || j < lim;
+      const uint32_t e = *reinterpret_cast<const uint32_t*>(
+          s_col + piece_byte(v, b) * 128);
+      int eL = -1, eI = -1;
+      if (!kLane) {
+        eL = __shfl_sync(kFull, vm, e >> 24, W);
+        if (kMode == kEmitLI) eI = __shfl_sync(kFull, vi, e >> 24, W);
+      }
+      // The low bits of e are the next state: the shuffle's source lane.
+      const int nm = __shfl_sync(kFull, vm, e, W);
+      int ni = 0;
+      if (kMode == kEmitLI) ni = __shfl_sync(kFull, vi, e, W);
+      const int aj = (e & 0xff00u) ? j : -1;   // off the chain
+      if (live) {
+        const bool later = nm >= 0;
+        if (kMode == kEmitLI)
+          vi = later || q == emit ? ni : (int)((e >> 8) & 255) - 1;
+        vm = later ? nm : aj;
+      }
+      if (kLane) {
+        eL = vm;
+        eI = vi;
+      }
+      aL[b] = live ? eL : -1;
+      aI[b] = live ? eI : -1;
+    }
+    const int nb = min(16, te - pos);    // boundaries pos+1 .. pos+nb
+    if (q == writer && nb > 0) {
+      if (kMode == kCount) {
+#pragma unroll
+        for (int b = 0; b < 16; ++b) cnt += b < nb && aL[b] >= 0;
+      } else if (nb == 16) {
+        int4* dL = reinterpret_cast<int4*>(p.L + pos + 1);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          dL[k] = make_int4(aL[4 * k], aL[4 * k + 1], aL[4 * k + 2],
+                            aL[4 * k + 3]);
+        if (kMode == kEmitLI) {
+          int4* dI = reinterpret_cast<int4*>(p.I + pos + 1);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            dI[k] = make_int4(aI[4 * k], aI[4 * k + 1], aI[4 * k + 2],
+                              aI[4 * k + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int b = 0; b < 16; ++b) {
+          if (b < nb) {
+            p.L[pos + 1 + b] = aL[b];
+            if (kMode == kEmitLI) p.I[pos + 1 + b] = aI[b];
+          }
+        }
+      }
+    }
+  }
+}
+
+// One tile by the sweep variant its warp needs (every shuffle is one of
+// the whole warp, so the choice is made for the warp).
+template <int kMode>
+__device__ __forceinline__ void sweep_any(const SweepParams& p,
+                                          const char* s_col, int W, int q,
+                                          int emit, int tb, int te, int& vm,
+                                          int& vi, int& cnt) {
+  const bool check =
+      !__all_sync(kFull, te == tb + kSweepTile && te <= p.n);
+  if (emit >= 0) {
+    if (check)
+      sweep_tile<kMode, true, true>(p, s_col, W, q, emit, tb, te, vm, vi,
+                                    cnt);
+    else
+      sweep_tile<kMode, true, false>(p, s_col, W, q, emit, tb, te, vm, vi,
+                                     cnt);
+  } else {
+    if (check)
+      sweep_tile<kMode, false, true>(p, s_col, W, q, emit, tb, te, vm, vi,
+                                     cnt);
+    else
+      sweep_tile<kMode, false, false>(p, s_col, W, q, emit, tb, te, vm, vi,
+                                      cnt);
+  }
+}
+
+// Pass 3: each group sweeps its chunk right to left from V = X_g o carry,
+// one state per lane, emitting boundaries (lo, hi] (and boundary 0 for
+// the first chunk). The groups of a warp walk their chunks' tiles in
+// lockstep, so every shuffle is one of the whole warp.
+template <int kMode>
+__global__ void __launch_bounds__(kSweepThreads)
+sweep_emit_kernel(SweepParams p) {
+  __shared__ uint32_t s_T[256 * 32];
+  __shared__ int s_c[3][kSweepMaxQ];
+  __shared__ int s_red[2][kSweepThreads / 32];
+  const int tid = threadIdx.x, W = p.W, n = p.n;
+  const int g = tid / W, q = tid & (W - 1);
+  const int gl = (tid & 31) & ~(W - 1);
+  const unsigned gbits = W == 32 ? kFull : ((1u << W) - 1u) << gl;
+  const uint32_t* s_row = s_T + gl + q;   // this lane's column of the table
+  stage_table(s_T, p.T, W);
+  if (tid < kSweepMaxQ) {
+    const int* x = p.seg_x + (size_t)blockIdx.x * 3 * p.Q;
+    const bool real = tid < p.Q;
+    s_c[0][tid] = real ? x[tid] : tid;
+    s_c[1][tid] = real ? x[p.Q + tid] : -1;
+    s_c[2][tid] = real ? x[2 * p.Q + tid] : -1;
+  }
+  __syncthreads();
+
+  // V, the suffix right of this chunk: X_g o carry (m and i; f unused).
+  const int* cx = p.chunk_x + (size_t)blockIdx.x * 3 * kSweepThreads;
+  const int xf = cx[tid], xm = cx[kSweepThreads + tid];
+  const int xi = cx[2 * kSweepThreads + tid];
+  const int mg = s_c[1][xf];
+  int vm = mg >= 0 ? mg : xm;
+  int vi = mg >= 0 ? s_c[2][xf] : xi;
+
+  const int emit = p.Q < W ? p.Q : -1;    // the idle lane that emits
+  int lo, hi;
+  const bool valid = chunk_range(p, g, lo, hi);   // else lo = hi = 0
+  int cnt = 0, skipped = 0;
+  for (int k = p.tiles_per_chunk - 1; k >= 0; --k) {
+    const int tb = lo + k * kSweepTile;
+    const int te = min(tb + kSweepTile, hi);     // <= tb: no bytes here
+    if (p.skip) {
+      // The FF tile skip, for a warp whose groups can all take it (or have
+      // no bytes here): first byte uniform, the others silent, no match
+      // from the dead state beyond the tile.
+      const bool whole = te == tb + kSweepTile && te <= n;
+      int live = 0;
+      for (int v = q; v < kSweepTile / 16; v += W) {
+        const uint4 w = load16(p.text, tb + 16 * v, p.P);
+#pragma unroll
+        for (int b = 0; b < 16; ++b) {
+          const int f = (s_row[byte_of(w, b) * 32] >> 16) & 255;
+          live |= !(f & (v == 0 && b == 0 ? kUniform : kSilent));
+        }
+      }
+      const unsigned any = __ballot_sync(kFull, live) & gbits;
+      const int dm = __shfl_sync(kFull, vm, p.dead, W);
+      const bool can = whole && !any && dm < 0;
+      if (__all_sync(kFull, can || te <= tb)) {
+        // Boundary te from V; the inner boundaries are -1; V moves left
+        // past the tile: (dead, tb if byte tb accepts from q, its pid).
+        const int st = s_row[p.text[max(te - 1, 0)] * 32] >> 24;
+        const int Lv = __shfl_sync(kFull, vm, st, W);
+        const int Iv = __shfl_sync(kFull, vi, st, W);
+        if (can) {
+          if (kMode == kCount) {
+            cnt += q == 0 && Lv >= 0;
+          } else {
+            if (q == 0) {
+              p.L[te] = Lv;
+              if (kMode == kEmitLI) p.I[te] = Iv;
+            }
+            for (int b = tb + 1 + q; b < te; b += W) {
+              p.L[b] = -1;
+              if (kMode == kEmitLI) p.I[b] = -1;
+            }
+          }
+          const int a1 = (s_row[p.text[tb] * 32] >> 8) & 255;
+          vm = a1 ? tb : -1;
+          vi = a1 - 1;
+          skipped += q == 0;
+        }
+        continue;
+      }
+    }
+    sweep_any<kMode>(p, reinterpret_cast<const char*>(s_row), W, q, emit,
+                     tb, te, vm, vi, cnt);
+  }
+  {
+    // Boundary 0, from the begin context's start state.
+    const int Lv = __shfl_sync(kFull, vm, p.start0, W);
+    const int Iv = __shfl_sync(kFull, vi, p.start0, W);
+    if (valid && lo == 0 && q == 0) {
+      if (kMode == kCount) {
+        cnt += Lv >= 0;
+      } else {
+        p.L[0] = Lv;
+        if (kMode == kEmitLI) p.I[0] = Iv;
+      }
+    }
+  }
+
+  for (int o = 16; o > 0; o >>= 1) {
+    cnt += __shfl_down_sync(kFull, cnt, o);
+    skipped += __shfl_down_sync(kFull, skipped, o);
+  }
+  if ((tid & 31) == 0) {
+    s_red[0][tid >> 5] = cnt;
+    s_red[1][tid >> 5] = skipped;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0, sk = 0;
+    for (int w = 0; w < kSweepThreads / 32; ++w) {
+      total += s_red[0][w];
+      sk += s_red[1][w];
+    }
+    if (total) atomicAdd(p.counts, total);
+    if (sk) atomicAdd(p.counts + 1, sk);
+  }
+}
+
+// The carry pass of the sweep instance (one block of 32 warps, Q <= 32,
+// one state per lane): X_j = S_{j+1} o ... o S_{nseg-1} o seed for every
+// segment j, and G = S_0 o X_0. Warp w composes its run of segments right
+// to left into an aggregate; warp 0 composes the 32 aggregates from the
+// seed into each run's carry and G; each warp walks its run again from its
+// carry and writes X_j. Two chains of nseg / 32 steps and one of 32, each
+// step three shuffles, where the doubling scan takes log2(nseg) rounds
+// through device memory.
+__global__ void __launch_bounds__(1024)
+sweep_carry_kernel(const int* __restrict__ seg_sum,
+                   const int* __restrict__ seed, int* __restrict__ seg_x,
+                   int* __restrict__ G, int Q, int nseg) {
+  __shared__ int s_a[3][32][32];   // aggregates [r][warp][lane]
+  __shared__ int s_c[3][32][32];   // carries
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const bool real = lane < Q;
+  const int run = (nseg + 31) / 32;
+  const int lo = min(w * run, nseg), hi = min(lo + run, nseg);
+  // vf/vm/vi = S_j o V, S_j read from seg_sum (identity past Q).
+  auto compose = [&](int j, int& vf, int& vm, int& vi) {
+    const int* s = seg_sum + (size_t)j * 3 * Q;
+    const int sf = real ? s[lane] : lane;
+    const int sm = real ? s[Q + lane] : -1;
+    const int si = real ? s[2 * Q + lane] : -1;
+    const int nf = __shfl_sync(0xffffffffu, vf, sf);
+    const int nm = __shfl_sync(0xffffffffu, vm, sf);
+    const int ni = __shfl_sync(0xffffffffu, vi, sf);
+    vf = nf;
+    vm = nm >= 0 ? nm : sm;
+    vi = nm >= 0 ? ni : si;
+  };
+  int vf = lane, vm = -1, vi = -1;
+  for (int j = hi - 1; j >= lo; --j) compose(j, vf, vm, vi);
+  s_a[0][w][lane] = vf;
+  s_a[1][w][lane] = vm;
+  s_a[2][w][lane] = vi;
+  __syncthreads();
+  if (w == 0) {
+    int cf = real ? seed[lane] : lane;
+    int cm = real ? seed[Q + lane] : -1;
+    int ci = real ? seed[2 * Q + lane] : -1;
+    for (int k = 31; k >= 0; --k) {
+      s_c[0][k][lane] = cf;
+      s_c[1][k][lane] = cm;
+      s_c[2][k][lane] = ci;
+      const int af = s_a[0][k][lane];
+      const int nf = __shfl_sync(0xffffffffu, cf, af);
+      const int nm = __shfl_sync(0xffffffffu, cm, af);
+      const int ni = __shfl_sync(0xffffffffu, ci, af);
+      cf = nf;
+      ci = nm >= 0 ? ni : s_a[2][k][lane];
+      cm = nm >= 0 ? nm : s_a[1][k][lane];
+    }
+    if (real) {
+      G[lane] = cf;
+      G[Q + lane] = cm;
+      G[2 * Q + lane] = ci;
+    }
+  }
+  __syncthreads();
+  vf = s_c[0][w][lane];
+  vm = s_c[1][w][lane];
+  vi = s_c[2][w][lane];
+  for (int j = hi - 1; j >= lo; --j) {
+    if (real) {
+      int* x = seg_x + (size_t)j * 3 * Q;
+      x[lane] = vf;
+      x[Q + lane] = vm;
+      x[2 * Q + lane] = vi;
+    }
+    compose(j, vf, vm, vi);
+  }
+}
+
+template <int kMode>
+cudaError_t launch_sweep_emit(const SweepParams& p, int nseg, cudaStream_t s) {
+  sweep_emit_kernel<kMode><<<nseg, kSweepThreads, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <int kMode>
+int emit_blocks_per_sm() {
+  int b = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, sweep_emit_kernel<kMode>,
+                                                kSweepThreads, 0);
+  return b;
+}
+
 }  // namespace
 
 extern "C" {
@@ -467,18 +983,18 @@ size_t schain_fused_smem_bytes(int mode, int Q, int C, int K, int NB) {
   return tile_smem_words(mode, Q, C, K, NB) * sizeof(int);
 }
 
-// One fused match: pass 1, the carry pass, and pass 3 in `mode` (1 L,
-// 2 L and I, 3 count), on `stream`. seg_sum, seg_x and seg_y hold
-// nseg*3*Q ints, counts 2 ints zeroed by the caller; G gets 3*Q ints.
-// Returns cudaGetLastError() after the last launch (0 = launched), or the
-// first launch's error, or cudaErrorInvalidValue for a geometry the
-// kernels do not take.
-int schain_fused(const uint8_t* text, const int* tab, const int* class_of,
-                 const int* start_of, const int* flags, const int* seed,
-                 int* seg_sum, int* seg_x, int* seg_y, int* L, int* I, int* G,
-                 int* counts, int Q, int C, int K, int NB, int P, int n,
-                 int start0, int dead, int skip, int tiles_per_seg, int mode,
-                 void* stream) {
+// One fused match by the tile instance: pass 1, the carry pass, and pass 3
+// in `mode` (1 L, 2 L and I, 3 count), on `stream`. seg_sum, seg_x and
+// seg_y hold nseg*3*Q ints, L and I P+1 ints, counts 2 ints zeroed by the
+// caller; G gets 3*Q ints. Returns cudaGetLastError() after the last
+// launch (0 = launched), or the first launch's error, or
+// cudaErrorInvalidValue for a geometry the kernels do not take.
+int schain_fused_tile(const uint8_t* text, const int* tab, const int* class_of,
+                      const int* start_of, const int* flags, const int* seed,
+                      int* seg_sum, int* seg_x, int* seg_y, int* L, int* I,
+                      int* G, int* counts, int Q, int C, int K, int NB, int P,
+                      int n, int start0, int dead, int skip, int tiles_per_seg,
+                      int mode, void* stream) {
   if (Q <= 0 || Q > kThreads || C <= 0 || K <= 0 || NB <= 0 ||
       (NB & (NB - 1)) || P <= 0 || P % K || n < 0 || n > P ||
       tiles_per_seg <= 0 || mode < kEmitL || mode > kCount ||
@@ -500,6 +1016,62 @@ int schain_fused(const uint8_t* text, const int* tab, const int* class_of,
   if (mode == kEmitL) return (int)launch_tiles<kEmitL>(p, nseg, s);
   if (mode == kEmitLI) return (int)launch_tiles<kEmitLI>(p, nseg, s);
   return (int)launch_tiles<kCount>(p, nseg, s);
+}
+
+// CUDA blocks of the sweep instance that fit the current card at once in
+// `mode` (pass 1 and pass 3 together), or -1 on an error.
+int schain_sweep_max_blocks(int mode) {
+  int dev = 0, sms = 0, b1 = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &b1, sweep_summary_kernel, kSweepThreads, 0) != cudaSuccess)
+    return -1;
+  const int b3 = mode == kEmitL    ? emit_blocks_per_sm<kEmitL>()
+                 : mode == kEmitLI ? emit_blocks_per_sm<kEmitLI>()
+                                   : emit_blocks_per_sm<kCount>();
+  return sms * (b1 < b3 ? b1 : b3);
+}
+
+// One fused match by the sweep instance (Q <= 32, W the power of two >= Q):
+// pass 1, the carry pass and pass 3 in `mode`, on `stream`. T is the
+// (256, W) byte table; text must be 16-byte aligned. The text's 128-byte
+// tiles go tiles_per_chunk to a chunk, 256 / W chunks to a segment: nseg
+// segments, whose count the caller passes as a check. seg_sum and seg_x
+// hold nseg*3*Q ints, chunk_x nseg*3*256, L and I P+1 (with L + 1 and
+// I + 1 16-byte aligned), counts 2 zeroed by the caller; G gets 3*Q ints.
+// Returns as schain_fused_tile.
+int schain_fused_sweep(const uint8_t* text, const uint32_t* T,
+                       const int* seed, int* seg_sum, int* seg_x,
+                       int* chunk_x, int* L, int* I, int* G, int* counts,
+                       int Q, int W, int P, int n, int start0, int dead,
+                       int skip, int tiles_per_chunk, int nseg, int mode,
+                       void* stream) {
+  if (Q <= 0 || Q > kSweepMaxQ || W < Q || W > kSweepMaxQ || (W & (W - 1)) ||
+      P <= 0 || n < 0 || n > P || tiles_per_chunk <= 0 || mode < kEmitL ||
+      mode > kCount || dead >= Q || (skip && dead < 0) ||
+      start0 < 0 || start0 >= Q || ((uintptr_t)text & 15) ||
+      (mode != kCount && ((uintptr_t)(L + 1) & 15)) ||
+      (mode == kEmitLI && ((uintptr_t)(I + 1) & 15)))
+    return (int)cudaErrorInvalidValue;
+  const int ntiles = (P + kSweepTile - 1) / kSweepTile;
+  const int nchunks = (ntiles + tiles_per_chunk - 1) / tiles_per_chunk;
+  const int groups = kSweepThreads / W;
+  if (nseg != (nchunks + groups - 1) / groups || nseg > kMaxSegments)
+    return (int)cudaErrorInvalidValue;
+  SweepParams p{text, T, seg_sum, seg_x, chunk_x, L, I, counts, Q, W, P, n,
+                start0, dead, skip, ntiles, tiles_per_chunk};
+  cudaStream_t s = (cudaStream_t)stream;
+  sweep_summary_kernel<<<nseg, kSweepThreads, 0, s>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sweep_carry_kernel<<<1, 1024, 0, s>>>(seg_sum, seed, seg_x, G, Q, nseg);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (mode == kEmitL) return (int)launch_sweep_emit<kEmitL>(p, nseg, s);
+  if (mode == kEmitLI) return (int)launch_sweep_emit<kEmitLI>(p, nseg, s);
+  return (int)launch_sweep_emit<kCount>(p, nseg, s);
 }
 
 const char* schain_error_string(int err) {

@@ -19,9 +19,14 @@ candidate is a match, so the keys are the spans.
 
 Bound on an H100 (3.35 TB/s): 1 B read per text byte, (cap + 1) * 4 / 128 B
 written per text byte; the compares are at least one per literal per
-position plus one per matched prefix byte, about as costly as the bytes for
-a dozen literals (chip_smoke.py computes both from each run's text and
-takes the larger).
+position, about as costly as the bytes for a dozen literals (chip_smoke.py
+computes both from each run's text and takes the larger).
+The kernel is a branch-free prefix filter: `table_arrays` packs each
+literal's first 8 bytes into two words with byte masks, in claim order;
+each position tests every literal (one AND-XOR per word, one compare),
+visiting them in reverse claim order so that the first hit in claim order
+is the last predicated select; only a literal longer than 8 bytes whose
+prefix matched compares its tail.
 Measured times beside the bound are in PERF.md.
 
 `literal_spans` checks its arguments. On CPU tensors it runs
@@ -45,6 +50,7 @@ CHL = 128        # lanes: one extraction row = 128 text bytes
 R = 512          # rows per staging step of pad_rows (64 KiB of text)
 STEP = R * CHL
 BIG = 1 << 30
+META_INTS = 8    # ints per literal in the kernel's table (table_arrays)
 
 # Kernel launches per kernel name; reset with reset_launches().
 LAUNCHES = {"literal_spans": 0}
@@ -124,18 +130,41 @@ def literal_spans_plain(
     return keys.contiguous(), counts
 
 
+def table_arrays(lits: Tuple[bytes, ...],
+                 pids: Tuple[int, ...]) -> Tuple[np.ndarray, np.ndarray]:
+    """(words, meta) of the kernel's literal table, in claim order, as
+    numpy arrays. words: every literal's bytes zero-padded to whole
+    little-endian uint32 words, one literal after another. meta: (nlit,
+    META_INTS) int32, per literal its prefix word 0 (bytes 0..3),
+    that word's byte mask, len | pid << 8, the offset of its words in
+    `words`, prefix word 1 (bytes 4..7) and its mask, and two zeros; the
+    masks cover the literal's first min(len, 8) bytes."""
+    order = claim_order(lits, pids)
+    meta = np.zeros((len(lits), META_INTS), dtype=np.uint32)
+    words = []
+    for row, i in enumerate(order):
+        lit = lits[i]
+        padded = lit + bytes(-len(lit) % 4)
+        w = np.frombuffer(padded, dtype="<u4")
+        head = lit[:8].ljust(8, b"\0")
+        mask = (b"\xff" * min(len(lit), 8)).ljust(8, b"\0")
+        pre = np.frombuffer(head, dtype="<u4")
+        msk = np.frombuffer(mask, dtype="<u4")
+        meta[row, :4] = (pre[0], msk[0], len(lit) | pids[i] << 8,
+                         sum(len(x) for x in words))
+        meta[row, 4:6] = (pre[1], msk[1])
+        words.append(w)
+    return (np.concatenate(words).astype(np.uint32),
+            meta.view(np.int32))
+
+
 @functools.lru_cache(maxsize=64)
 def _table(lits: Tuple[bytes, ...], pids: Tuple[int, ...],
            dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(bytes, meta) of the literal table in claim order on `dev`: the
-    concatenated literal bytes, and offsets, lengths and pids (int32).
-    Cached, so repeated calls copy nothing to the card."""
-    order = claim_order(lits, pids)
-    blob = b"".join(lits[i] for i in order)
-    offs = np.cumsum([0] + [len(lits[i]) for i in order])[:-1]
-    meta = np.concatenate([offs, [len(lits[i]) for i in order],
-                           [pids[i] for i in order]]).astype(np.int32)
-    return (torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(dev),
+    """table_arrays on `dev` (words as int32). Cached, so repeated calls
+    copy nothing to the card."""
+    words, meta = table_arrays(lits, pids)
+    return (torch.from_numpy(words.view(np.int32)).to(dev),
             torch.from_numpy(meta).to(dev))
 
 
@@ -163,14 +192,14 @@ def literal_spans(
         raise ValueError("text_rows must be 16-byte aligned")
     lib = _kernels()
     Rows = text_rows.shape[0]
-    blob, meta = _table(lits, pids, dev)
+    words, meta = _table(lits, pids, dev)
     keys = (torch.empty((Rows, cap), dtype=torch.int32, device=dev)
             if cap > 0 else None)
     counts = torch.empty(Rows, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.literal_spans(
-            text_rows.data_ptr(), blob.data_ptr(), meta.data_ptr(),
-            len(lits), blob.numel(),
+            text_rows.data_ptr(), words.data_ptr(), meta.data_ptr(),
+            len(lits), words.numel(),
             None if keys is None else keys.data_ptr(), counts.data_ptr(),
             Rows, int(n), cap, ebits, pbits,
             torch.cuda.current_stream(dev).cuda_stream,

@@ -5,47 +5,67 @@ Kernel (csrc/schain_fused.cu, built by kernels/build.py):
 
   schain_fused  replaces rejit_tpu/kernels/schain_pallas.py:call_fused
                 (_kernel, _kernel_heavy). One call matches a whole padded
-                uint8 text: L (longest match end per boundary), I (pattern
-                id, several patterns), or the count of boundaries with
-                L >= 0; and G, the text's (f, m, i) state-map summary
-                composed with the seed. Byte classes and start states are
-                looked up in the kernel, so no per-byte array but the
-                outputs reaches device memory.
+                uint8 text of P bytes: L (longest match end per boundary,
+                all P + 1 of them, -1 past n), I (pattern id, several
+                patterns), or the count of boundaries with L >= 0; and G,
+                the text's (f, m, i) state-map summary composed with the
+                seed. Boundary P comes from the seed (the EOT accepts of a
+                standalone text). Byte classes and start states are looked
+                up in the kernel, so no per-byte array but the outputs
+                reaches device memory.
 
 The TPU kernel carried the suffix right to left across its sequential grid;
 CUDA blocks run in no order, so the carry is an explicit pass: per-segment
 summaries, one block composing them into each segment's exclusive suffix
-(and G), then the emitting pass (three launches, counted as one call). The
-fast-forward chunk skip is kept, per tile of NB sub-blocks of K bytes. The
-TPU-only forms (select chains, the dominant class, the (8, CHL) tiling, the
-packed `f<<ms|m`, the rolled `fori_loop` form) are not carried over; `emit_f`
-(shard mode) waits for the streaming and mesh slices.
+(and G), then the emitting pass (three launches, counted as one call). Two
+instances (`instance_for`):
+
+  sweep  Q <= 32: a group of W lanes (W the power of two >= Q) holds the
+         state-map vector of one chunk, one state per lane, and sweeps the
+         chunk right to left from the chunk's exclusive suffix, a table
+         load and a shuffle per byte; each boundary's L is the vector's m
+         at its start state. The summary pass runs each state forward and
+         stops once every state is dead. Byte table: `engine.schain.
+         sweep_table`; geometry: `sweep_geometry`.
+  tile   Q <= 256: tiles of NB sub-blocks of K bytes, one thread per
+         (sub-block, state) for the summaries, a doubling scan in shared
+         memory, one thread per boundary to its sub-block end (`geometry`).
+
+The fast-forward chunk skip is kept in both, per 128-byte tile (sweep) or
+NB*K-byte tile (tile). The TPU-only forms (select chains, the dominant
+class, the (8, CHL) tiling, the packed `f<<ms|m`, the rolled `fori_loop`
+form) are not carried over; `emit_f` (shard mode) waits for the streaming
+and mesh slices.
 
 Bounds on an H100 (3.35 TB/s): per text byte the function reads 1 B and
 writes 4 B (L), 8 B (L and I) or nothing (count), and needs Q automaton
 steps; with one pattern at Q = 6 the L mode is bounded by bytes and the
-count mode by operations. The kernel takes 2*Q + (K+1)/2 steps per byte
-(phase 1 in both passes, phase 3 in the emitting pass), each a shared-memory
-table lookup. Measured times beside these bounds are in PERF.md (from
-chip_smoke.py).
+count mode by operations. The sweep instance takes W steps per byte in its
+emitting pass, each a shared-memory load and one shuffle (three in L+I
+mode), so the shared-memory and shuffle pipe bounds it; the tile instance
+takes 2*Q + (K+1)/2 steps per byte, each a chain of two shared-memory
+loads.
+Measured times beside these bounds are in PERF.md (from chip_smoke.py).
 
-`schain_fused` checks dtype, shape and contiguity. On CPU tensors it runs
-`schain_fused_plain`; on CUDA tensors it launches the kernel on the current
-stream, or raises. It never falls back. `LAUNCHES` counts kernel calls
-(plain runs are not counted).
+`schain_fused` checks dtype, shape, contiguity and alignment. On CPU
+tensors it runs `schain_fused_plain`; on CUDA tensors it launches the
+kernel on the current stream, or raises. It never falls back. `LAUNCHES`
+counts kernel calls (plain runs are not counted).
 
-The fused block K (`Config.fused_block`) defaults to DEFAULT_BLOCK = 32:
-phase 3 costs (K+1)/2 steps per byte and phase 1 Q, so K near 32 balances
-them at the small Q of typical patterns, as in the split pipeline.
+The fused block K (`Config.fused_block`) defaults to DEFAULT_BLOCK = 32: the
+grain of the padded text; the tile instance's sub-block, where phase 3
+costs (K+1)/2 steps per byte and phase 1 Q, so K near 32 balances them at
+the small Q of typical patterns. The sweep instance does not depend on it.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
-from ..engine import pipeline
+from ..engine import pipeline, schain
 from ..engine.pipeline import DeviceTables
 from . import build, dfa_cuda
 
@@ -57,9 +77,12 @@ MAX_Q = 256              # states: one thread per state in the carry steps
 MAX_TABLE_WORDS = 4096   # C*Q: the table always fits in shared memory
 TILE_BYTES = 2048        # at most NB*K bytes per tile
 TILE_STATES = 2048       # at most NB*Q summaries per tile in shared memory
-MAX_SEGMENTS = 1024      # CUDA blocks of the tile passes (and carry scan)
+MAX_SEGMENTS = 1024      # CUDA blocks of a segment pass (and carry scan)
 MAX_P = (1 << 31) - 2 * TILE_BYTES   # int32 positions, tile arithmetic
 MODES = {"l": 1, "li": 2, "count": 3}
+SWEEP_MAX_Q = 32         # the sweep instance: one state per lane of a warp
+SWEEP_TILE = 128         # bytes of its skip tile; its chunks are whole tiles
+SWEEP_THREADS = 256      # threads of its CUDA blocks
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -75,8 +98,12 @@ def _kernels() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build.load("schain_fused")
-        lib.schain_fused.argtypes = [_P] * 13 + [_I] * 11 + [_P]
-        lib.schain_fused.restype = _I
+        lib.schain_fused_tile.argtypes = [_P] * 13 + [_I] * 11 + [_P]
+        lib.schain_fused_tile.restype = _I
+        lib.schain_fused_sweep.argtypes = [_P] * 10 + [_I] * 10 + [_P]
+        lib.schain_fused_sweep.restype = _I
+        lib.schain_sweep_max_blocks.argtypes = [_I]
+        lib.schain_sweep_max_blocks.restype = _I
         lib.schain_error_string.argtypes = [_I]
         lib.schain_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -97,9 +124,35 @@ def _pow2_floor(x: int) -> int:
     return 1 << (max(1, x).bit_length() - 1)
 
 
+def instance_for(Q: int) -> str:
+    """The kernel instance for Q states: 'sweep' up to SWEEP_MAX_Q, else
+    'tile'."""
+    return "sweep" if Q <= SWEEP_MAX_Q else "tile"
+
+
+def sweep_geometry(Q: int, P: int,
+                   max_blocks: int) -> Tuple[int, int, int, int]:
+    """(W, ntiles, tiles_per_chunk, nseg) of the sweep instance for Q
+    states and a padded text of P bytes: groups of W lanes (the power of
+    two >= Q), SWEEP_THREADS // W chunks of whole SWEEP_TILE-byte tiles per
+    CUDA block, and at most min(max_blocks, MAX_SEGMENTS) blocks, so that
+    `max_blocks` (the blocks the card holds at once) run in one wave."""
+    if not 1 <= Q <= SWEEP_MAX_Q:
+        raise ValueError(f"the sweep instance takes 1..{SWEEP_MAX_Q} "
+                         f"states, not {Q}")
+    W = 1 << (Q - 1).bit_length()
+    groups = SWEEP_THREADS // W
+    ntiles = -(-P // SWEEP_TILE)
+    cap = max(1, min(MAX_SEGMENTS, max_blocks))
+    tpc = -(-ntiles // (groups * cap))
+    nchunks = -(-ntiles // tpc)
+    return W, ntiles, tpc, -(-nchunks // groups)
+
+
 def geometry(Q: int, K: int, P: int) -> Tuple[int, int, int, int]:
-    """(NB, ntiles, tiles_per_segment, nseg) of the kernel for Q states, a
-    fused block of K bytes and a padded text of P bytes: NB sub-blocks per
+    """(NB, ntiles, tiles_per_segment, nseg) of the tile instance for Q
+    states, a fused block of K bytes and a padded text of P bytes: NB
+    sub-blocks per
     tile (a power of two, NB*K <= TILE_BYTES, NB*Q <= TILE_STATES), tiles
     dealt in runs to at most MAX_SEGMENTS CUDA blocks."""
     if not 1 <= K <= TILE_BYTES:
@@ -134,11 +187,29 @@ def start_states_for(ct: DeviceTables, prev_bytes: torch.Tensor):
     return ct.start_of_byte.index_select(0, prev_bytes.to(torch.int64))
 
 
-def stage_meta(ct: DeviceTables, text: torch.Tensor) -> torch.Tensor:
-    """Pattern-dependent staging of a padded text: the start state at
-    boundary P (a 0-d tensor). Per-block start states, the TPU kernel's
-    other meta, are looked up from the bytes inside the CUDA kernel."""
-    return start_states_for(ct, text[-1:])[0]
+@functools.lru_cache(maxsize=64)
+def _sweep_table(static: tuple, dev: torch.device) -> torch.Tensor:
+    """The sweep instance's (256, W) byte table on `dev`, as int32. Cached,
+    so repeated calls copy nothing to the card."""
+    W = 1 << (len(static[2][0]) - 1).bit_length()
+    return torch.from_numpy(schain.sweep_table(static, W).view("int32")).to(
+        dev)
+
+
+def _boundary_buffer(P: int, dev: torch.device) -> torch.Tensor:
+    """An int32 tensor of P+1 boundaries whose element 1 is 16-byte aligned
+    (the sweep instance stores 16 bytes at a time from boundary 1 on)."""
+    return torch.empty(P + 4, dtype=torch.int32, device=dev)[3:]
+
+
+@functools.lru_cache(maxsize=16)
+def _sweep_blocks(device_index: Optional[int], mode: str) -> int:
+    """CUDA blocks of the sweep instance that the current card holds at
+    once in `mode` (call with that card current)."""
+    b = _kernels().schain_sweep_max_blocks(MODES[mode])
+    if b <= 0:
+        raise RuntimeError("schain_fused: occupancy query failed")
+    return b
 
 
 # ---------------------------------------------------------------------------
@@ -185,8 +256,9 @@ def schain_fused_plain(
     block: int = DEFAULT_BLOCK, mode: str = "li",
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """schain_fused in torch ops, from the split pipeline's pieces: phase 1,
-    the suffix scan seeded with `seed`, phase 3; G = block 0's summary
-    composed with its exclusive suffix."""
+    the suffix scan seeded with `seed`, phase 3; boundary P from the seed
+    at the start state after the last byte; G = block 0's summary composed
+    with its exclusive suffix."""
     P = text.shape[0]
     v = pipeline.views(ct, text, block)
     summ = dfa_cuda.phase1_plain(ct.packed, ct.n_classes, v.cls_kb, n)
@@ -194,7 +266,10 @@ def schain_fused_plain(
     L, I = dfa_cuda.phase3_plain(
         ct.packed, ct.n_classes, suf, v.cls_kb, v.startsb, n
     )
-    beyond = torch.arange(P, device=text.device) > n
+    st = v.start_eot.view(1).long()
+    L = torch.cat([L, seed[1].index_select(0, st)])
+    I = torch.cat([I, seed[2].index_select(0, st)])
+    beyond = torch.arange(P + 1, device=text.device) > n
     L = L.masked_fill(beyond, -1)
     G = torch.stack(pipeline.combine(
         tuple(x[0] for x in summ), tuple(x[0] for x in suf)
@@ -216,28 +291,49 @@ def schain_fused(
     `seed` (3, Q) int32: the kernel on CUDA tensors, the plain version on
     CPU tensors.
 
-    mode 'li': L and I, each (P,) int32, -1 past n; 'l': L and None (one
-    pattern: every pid is 0); 'count': the number of boundaries s < P with
-    L[s] >= 0 as a 0-d int32 tensor, and None. G is (3, Q) int32. With
-    `use_ff` the kernel skips silent tiles (results are the same). When
-    `stats` is a dict, a kernel call stores there its tile count ("tiles")
-    and a device tensor of the tiles it skipped ("skipped_tiles")."""
+    mode 'li': L and I, each (P+1,) int32 over the boundaries 0..P, -1
+    past n; 'l': L and None (one pattern: every pid is 0); 'count': the
+    number of boundaries s <= P with L[s] >= 0 as a 0-d int32 tensor, and
+    None. G is (3, Q) int32. With `use_ff` the kernel skips silent tiles
+    (results are the same). The kernel instance is `instance_for(Q)`.
+    When `stats` is a dict, a kernel call stores there its instance, its
+    tile count ("tiles") and a device tensor of the tiles it skipped
+    ("skipped_tiles")."""
+    return _fused(ct, text, n, seed, instance_for(ct.n_states), block=block,
+                  mode=mode, use_ff=use_ff, stats=stats)
+
+
+def _schain_fused_tile(
+    ct: DeviceTables, text: torch.Tensor, n: int, seed: torch.Tensor, **kw,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """schain_fused by the tile instance whatever Q is: a hook for
+    chip_smoke.py, which holds the tile instance against the plain version
+    on Q <= 32 tables too and times it beside the sweep instance."""
+    return _fused(ct, text, n, seed, "tile", **kw)
+
+
+def _fused(
+    ct: DeviceTables, text: torch.Tensor, n: int, seed: torch.Tensor,
+    instance: str, *, block: int = DEFAULT_BLOCK, mode: str = "li",
+    use_ff: bool = True, stats: Optional[dict] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """schain_fused by `instance` ('sweep' takes Q <= SWEEP_MAX_Q)."""
+    Q, C = ct.n_states, ct.n_classes
     _check(ct, text, n, seed, block, mode)
     if text.device.type == "cpu":
         return schain_fused_plain(ct, text, n, seed, block=block, mode=mode)
+    if text.data_ptr() % 16:
+        raise ValueError("text must be 16-byte aligned")
     lib = _kernels()
     dev = text.device
     P = text.shape[0]
-    Q, C = ct.n_states, ct.n_classes
-    NB, ntiles, tps, nseg = geometry(Q, block, P)
     fp = ct.plan
     skip = bool(use_ff and fp.skip)
-    segs = torch.empty((3, nseg, 3, Q), dtype=torch.int32, device=dev)
     L = I = None
     if mode != "count":
-        L = torch.empty(P, dtype=torch.int32, device=dev)
+        L = _boundary_buffer(P, dev)
     if mode == "li":
-        I = torch.empty(P, dtype=torch.int32, device=dev)
+        I = _boundary_buffer(P, dev)
     G = torch.empty((3, Q), dtype=torch.int32, device=dev)
     counts = torch.zeros(2, dtype=torch.int32, device=dev)
 
@@ -245,22 +341,44 @@ def schain_fused(
         return None if x is None else x.data_ptr()
 
     with torch.cuda.device(dev):
-        err = lib.schain_fused(
-            text.data_ptr(), ct.packed.data_ptr(), ct.class_of.data_ptr(),
-            ct.start_of_byte.data_ptr(), ct.byte_flags.data_ptr(),
-            seed.data_ptr(), segs[0].data_ptr(), segs[1].data_ptr(),
-            segs[2].data_ptr(), ptr(L), ptr(I), G.data_ptr(),
-            counts.data_ptr(), Q, C, block, NB, P, int(n),
-            fp.start_by_ctx[0], fp.dead if skip else -1, int(skip), tps,
-            MODES[mode], torch.cuda.current_stream(dev).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if instance == "sweep":
+            W, ntiles, tpc, nseg = sweep_geometry(
+                Q, P, _sweep_blocks(dev.index, mode))
+            segs = torch.empty((2, nseg, 3, Q), dtype=torch.int32,
+                               device=dev)
+            chunk_x = torch.empty((nseg, 3, SWEEP_THREADS),
+                                  dtype=torch.int32, device=dev)
+            dead = -1 if fp.dead is None else fp.dead
+            err = lib.schain_fused_sweep(
+                text.data_ptr(), _sweep_table(ct.static, dev).data_ptr(),
+                seed.data_ptr(), segs[0].data_ptr(), segs[1].data_ptr(),
+                chunk_x.data_ptr(), ptr(L), ptr(I),
+                G.data_ptr(), counts.data_ptr(), Q, W, P, int(n),
+                fp.start_by_ctx[0], dead, int(skip), tpc, nseg, MODES[mode],
+                stream,
+            )
+        else:
+            NB, ntiles, tps, nseg = geometry(Q, block, P)
+            segs = torch.empty((3, nseg, 3, Q), dtype=torch.int32,
+                               device=dev)
+            err = lib.schain_fused_tile(
+                text.data_ptr(), ct.packed.data_ptr(), ct.class_of.data_ptr(),
+                ct.start_of_byte.data_ptr(), ct.byte_flags.data_ptr(),
+                seed.data_ptr(), segs[0].data_ptr(), segs[1].data_ptr(),
+                segs[2].data_ptr(), ptr(L), ptr(I), G.data_ptr(),
+                counts.data_ptr(), Q, C, block, NB, P, int(n),
+                fp.start_by_ctx[0], fp.dead if skip else -1, int(skip), tps,
+                MODES[mode], stream,
+            )
     if err:
         msg = lib.schain_error_string(err).decode()
         raise RuntimeError(f"schain_fused launch failed: {msg} "
                            f"(cudaError {err})")
     LAUNCHES["schain_fused"] += 1
     if stats is not None:
-        stats.update(tiles=ntiles, skipped_tiles=counts[1])
+        stats.update(instance=instance, tiles=ntiles,
+                     skipped_tiles=counts[1])
     if mode == "count":
         return counts[0], None, G
     return L, I, G
@@ -270,46 +388,28 @@ def schain_fused(
 # Staged wrappers (schain_pallas.py:l_arrays_device_staged ..)
 # ---------------------------------------------------------------------------
 
-Staged = Tuple[torch.Tensor, torch.Tensor]   # (padded text, start_eot)
-
 
 def l_arrays_device_staged(
-    ct: DeviceTables, staged: Staged, n: int, *,
+    ct: DeviceTables, text: torch.Tensor, n: int, *,
     block: int = DEFAULT_BLOCK, use_ff: bool = True,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(L, I) int32 tensors of length P+1 (entries past n are -1) from a
-    staged text (`stage_meta`): the fused route's l_arrays_device."""
-    text, start_eot = staged
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(L, I) of a padded text, each int32 of length P+1 (entries past n are
+    -1): the fused route's l_arrays_device, straight from the kernel's
+    buffers. I is None for one pattern: every candidate's pattern id is 0
+    (engine/spans.py reads it so)."""
     mode = "li" if ct.n_patterns > 1 else "l"
     L, I, _G = schain_fused(ct, text, n, solo_seed(ct, n), block=block,
                             mode=mode, use_ff=use_ff)
-    if I is None:
-        I = torch.where(L >= 0, 0, -1).to(torch.int32)
-    return pipeline.finish(ct, start_eot, L, I, n)
-
-
-def l_arrays_device_schain_fused(
-    ct: DeviceTables, text: torch.Tensor, n: int, *,
-    block: int = DEFAULT_BLOCK, use_ff: bool = True,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """l_arrays_device_staged on a padded text staged on the spot."""
-    return l_arrays_device_staged(
-        ct, (text, stage_meta(ct, text)), n, block=block, use_ff=use_ff
-    )
+    return L, I
 
 
 def count_device_staged(
-    ct: DeviceTables, staged: Staged, n: int, *,
+    ct: DeviceTables, text: torch.Tensor, n: int, *,
     block: int = DEFAULT_BLOCK, use_ff: bool = True,
 ) -> torch.Tensor:
     """The candidate count as a device reduction (0-d int32): no L/I array
     is written. MatchAllCount for overlap-free patterns, where every
     candidate is a match."""
-    text, start_eot = staged
     cnt, _, _G = schain_fused(ct, text, n, solo_seed(ct, n), block=block,
                               mode="count", use_ff=use_ff)
-    # Boundary P is not one of the kernel's; it counts only when n == P
-    # (below that it lies past n).
-    if n == text.shape[0]:
-        cnt = cnt + (ct.accept_eot[start_eot] >= 0).to(torch.int32)
     return cnt

@@ -142,6 +142,6 @@ def test_fused_wrapper_checks_and_plain_run_counts_no_launch():
     for mode in ("l", "li", "count"):
         out, I, G = schain_cuda.schain_fused(ct, text, 60, seed, mode=mode)
         assert G.shape == (3, ct.n_states)
-        assert out.shape == (() if mode == "count" else (64,))
+        assert out.shape == (() if mode == "count" else (65,))
         assert (I is None) == (mode != "li")
     assert schain_cuda.LAUNCHES == {"schain_fused": 0}

@@ -140,6 +140,76 @@ def test_literal_spans_plain_equals_pallas(which, cap, short):
         np.testing.assert_array_equal(a, b)
 
 
+def _le_words(ext: np.ndarray, at: np.ndarray) -> np.ndarray:
+    """The little-endian uint32 word of ext[at .. at+3] at every index."""
+    b = ext.astype(np.uint32)
+    return b[at] | b[at + 1] << 8 | b[at + 2] << 16 | b[at + 3] << 24
+
+
+def _prefix_filter_spans(rows, n, lits, pids, cap, ebits=9, pbits=4):
+    """The kernel's prefix filter in numpy, from table_arrays: each position
+    tests every literal in claim order with one AND and one compare per
+    8-byte prefix word pair, `pos + len <= n` and "not claimed yet" as
+    predicates; a literal longer than 8 bytes whose prefix matched compares
+    its tail a word at a time. Keys and counts as the kernel writes them."""
+    words, meta = xc.table_arrays(lits, pids)
+    meta = meta.view(np.uint32)
+    flat = rows.reshape(-1)
+    P = flat.size
+    ext = np.concatenate([flat, np.zeros(xc.CHL + 8, np.uint8)])
+    pos = np.arange(P)
+    win = [_le_words(ext, pos + 4 * j) for j in range(2)]
+    wlen = np.full(P, -1)
+    pid = np.zeros(P, np.int64)
+    for pre0, msk0, lenpid, woff, pre1, msk1, _, _ in meta:
+        length, lp = int(lenpid & 255), int(lenpid >> 8)
+        hit = ((win[0] & msk0) == pre0) & ((win[1] & msk1) == pre1)
+        hit &= (pos + length <= n) & (wlen < 0)
+        for j in range(2, -(-length // 4)):
+            rem = length - 4 * j
+            m = np.uint32(0xFFFFFFFF if rem >= 4 else (1 << 8 * rem) - 1)
+            hit &= (_le_words(ext, pos + 4 * j) & m) == words[woff + j]
+        wlen[hit] = length
+        pid[hit] = lp
+    wlen = wlen.reshape(-1, xc.CHL)
+    counts = (wlen >= 0).sum(1)
+    lane = np.arange(xc.CHL)
+    key = lane << (ebits + pbits) | (lane + wlen) << pbits | pid.reshape(
+        wlen.shape)
+    keys = np.sort(np.where(wlen >= 0, key, xc.BIG), axis=1)[:, :cap]
+    return keys, counts
+
+
+@pytest.mark.parametrize("seed", [45, 49])
+def test_prefix_filter_model_equals_plain(seed):
+    """table_arrays' prefix words and masks, applied as the kernel applies
+    them (numpy), give literal_spans_plain's claim on random literal sets
+    of 1-9 bytes (3, 4 and 5 always among them), so 8-byte masked prefixes
+    decide literals shorter than 8 bytes exactly."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"abc", np.uint8)
+    for trial in range(6):
+        k = int(rng.integers(1, 16))
+        lens = [3, 4, 5] + list(rng.integers(1, 10, size=k))
+        lits = tuple(sorted({rng.choice(alphabet, size=int(m)).tobytes()
+                             for m in lens}))
+        pids = tuple(int(p) for p in rng.integers(0, 16, size=len(lits)))
+        text = rng.choice(alphabet, size=4000).astype(np.uint8)
+        for lit in lits:
+            for at in rng.choice(3900, size=8, replace=False):
+                text[at:at + len(lit)] = np.frombuffer(lit, np.uint8)
+        rows = xc.pad_rows(text, len(text), 9)
+        P = rows.size
+        for n in (len(text), len(text) - 3, int(rng.integers(1, P))):
+            for cap in (0, 4, 16):
+                keys, cnt = xc.literal_spans_plain(
+                    torch.from_numpy(rows), n, lits=lits, pids=pids, cap=cap)
+                mkeys, mcnt = _prefix_filter_spans(rows, n, lits, pids, cap)
+                np.testing.assert_array_equal(mcnt, cnt.numpy())
+                if cap:
+                    np.testing.assert_array_equal(mkeys, keys.numpy())
+
+
 def test_literal_spans_wrapper_checks_and_counts_no_launch():
     rows = torch.zeros((4, 128), dtype=torch.uint8)
     with pytest.raises(TypeError):

@@ -133,8 +133,28 @@ def test_stage_uploads_once_across_patterns_and_routes():
         assert p.match_all(corpus) == p.match_all(text)
         assert p.match_all_count(corpus) == p.match_all_count(text)
     assert corpus.uploads == 1
-    # One padded text serves every block size here; meta per tables.
-    assert len(corpus._padded) == 1 and len(corpus._meta) == 3
+    # One padded text serves every block size here.
+    assert len(corpus._padded) == 1
+
+
+def test_api_fused_equals_jax_at_n_P_and_0():
+    """The fused route's boundary P (the kernel's EOT row, from the seed):
+    a text whose length is a multiple of the fused block, ending in a match
+    that closes at the end of the text, and the empty text. (The text
+    pads to the JAX shape of test_stage_equals_jax_on_every_entry_point,
+    whose trace it reuses; the EOT row of several patterns is held against
+    the JAX kernel in tests/test_torch_schain.py.)"""
+    pats = [rb"\b\w+ing\b"]
+    p = rt.Pattern(pats, ON, device="cpu")
+    q = rejit_tpu.Pattern([x.decode() for x in pats], JCFG)
+    assert p.fused and q._use_schain_fused()
+    full = _soup(600, 5) + b" singing"
+    assert len(full) % p.fused_block == 0
+    for text in (full, b""):
+        want = q.tokenize(text)
+        assert p.tokenize(text) == want
+        assert p.match_all_count(text) == len(want)
+    assert p.match_all(full)[-1][1] == len(full)
 
 
 def test_routes():
