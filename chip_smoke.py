@@ -5,6 +5,10 @@ Run from the repository root, on a machine with an NVIDIA card and nvcc:
 
     python3 chip_smoke.py            # everything (what the chip check runs)
     python3 chip_smoke.py --quick    # build, checks and main paths; no timing
+    python3 chip_smoke.py --b1-times [--port-root DIR]
+        # the split route's dfa_phase1/dfa_phase3 rows only, for the port
+        # in DIR (default: this checkout); DIR may hold an older checkout
+        # whose kernels took int32 views, for a before column
 
 It builds the port's CUDA kernels from the sources in the checkout (one nvcc
 per source, all started together), then:
@@ -12,8 +16,14 @@ per source, all started together), then:
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, the kernel build time and what ptxas reports;
 2. holds every kernel against its plain PyTorch version on the same CUDA
-   tensors, bit for bit: dfa_phase1 and dfa_phase3 (with and without
-   posbase) for 7 pattern sets, and schain_fused in its L, L+I and count
+   tensors, bit for bit: dfa_phase1 and dfa_phase3 for 8 pattern sets on
+   200 KB texts with a block where no thread of a word pattern dies (at
+   n = len and n inside the first block, with the dead state and with
+   none, whose outputs must not differ; phase 3 also with posbase, some
+   blocks at a base of n): 6 small sets, the 250-word alternation (its
+   94 KB table in shared memory) and a 1000-word one (past the limit,
+   the read-only-cache instance), then on the 10 MB main text and the
+   250-word set on 10 MB of letters; schain_fused in its L, L+I and count
    modes, with the FF tile skip on and off, with the solo and a neutral
    seed (G included), at n = P, P-3, a tile edge, 1 and 0, for 10 pattern
    sets (Q = 2..242, every sweep width W = 2..32) on dense and sparse
@@ -40,8 +50,9 @@ per source, all started together), then:
 4. drives the split kernels on their paths, each with its own counts: a
    250-word alternation (tables too large for the fused kernel),
    `Config(schain_fused='off')` on the main text and on a sparse text (the
-   fast-forward route, dfa_phase3 with posbase); and the 3-pattern
-   tokenizer on the fused route; each against `re` or the CPU run;
+   fast-forward route, dfa_phase3 with posbase), each launching both split
+   kernels; and the 3-pattern tokenizer on the fused route; each against
+   `re` or the CPU run;
 5. runs config 1 (`packet` over the 10 MiB `make_corpus(seed=0,
    needle=b"packet", density=0.002)`, the program bench.py times): the
    literal engine's bitmask route, no kernel launched, spans equal to
@@ -57,8 +68,12 @@ per source, all started together), then:
    route's stages and the entry points' walls (host bytes and staged
    corpus) with CUDA events and the host clock, on the 10 MB text and on
    a 256 MiB text from the same generator, and config 1 at 10 MiB and
-   256 MiB; schain_fused in both instances; last, schain_fused per launch
-   (torch.profiler).
+   256 MiB; schain_fused in both instances; the split route (time_b1:
+   dfa_phase1/3, plain versions, suffix scan, l_arrays_device and its
+   peak memory, the live work b1_work counts and the bounds from it) on
+   config 3 at both sizes, the 250-word alternation at 10 MB (with its
+   match_all_arrays wall) and config 3's table on 10 MB of letters; last,
+   schain_fused per launch (torch.profiler).
 
 Every result is a JSON line; the `{"kernels": [...]}` line and the card's
 nvidia-smi line come just before the last line, which is
@@ -117,6 +132,7 @@ REPLACES = {
     "scan1d": "rejit_tpu/kernels/scan1d.py:94",
 }
 DEV = "cuda"
+WORD_CHARS = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz  ", np.uint8)
 ENTRY_POINTS = ("match_full", "match_anywhere", "match_first", "match_all",
                 "tokenize", "match_all_count")
 
@@ -195,45 +211,185 @@ def padded(text: bytes, dev, grain: int = K) -> torch.Tensor:
 
 def dfa_tables(rt, pats):
     """The pattern's DFA tables on the card (the DFA engine forced: literal
-    and class-run patterns otherwise take engines without tables)."""
-    return rt.Pattern(pats, rt.Config(engine="dfa"), device=DEV).ct
+    and class-run patterns otherwise take engines without tables; a state
+    limit above the default 4096 for the 1000-word alternation, whose
+    subset construction passes it before minimisation)."""
+    return rt.Pattern(pats, rt.Config(engine="dfa", max_dfa_states=16384),
+                      device=DEV).ct
 
 
-def split_kernels_vs_plain(rt, pats, text: bytes, dev, seed: int) -> dict:
-    """Max |kernel - plain| of dfa_phase1/3 on the same CUDA tensors, and
-    whether the kernels kept the table in shared memory."""
+def word_set(rng, count: int) -> list:
+    """`count` random lower-case words of 5-8 letters, sorted (fewer when
+    some repeat): an alternation of them has tables too large for the fused
+    kernel."""
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    return sorted({rng.choice(letters, size=int(rng.integers(5, 9))).tobytes()
+                   for _ in range(count)})
+
+
+def words_text(size: int) -> bytes:
+    """Letters and spaces (WORD_CHARS): the 250-word alternation's text."""
+    return np.random.default_rng(13).choice(WORD_CHARS, size=size).tobytes()
+
+
+def time_split_sets(rt, words, reps: int) -> list:
+    """[(label, time_b1 result)] on the split route's other 10 MB inputs:
+    the 250-word alternation on letters and spaces (Q = 871, the tables
+    the fused kernel does not take), and config 3's table on letters only,
+    where the threads of the states inside a word never die (early exit's
+    worst case on that table)."""
+    letters = np.frombuffer(WORD_CHARS.tobytes().strip(), np.uint8)
+    only_letters = np.random.default_rng(17).choice(
+        letters, size=10_000_000).tobytes()
+    return [
+        ("250-word alternation", time_b1(
+            rt, b"|".join(words), words_text(10_000_000), reps, 1,
+            wall_reps=5)),
+        ("config 3 table on letters", time_b1(
+            rt, MAIN_PATTERN, only_letters, reps, 2)),
+    ]
+
+
+def b1_times(rt, reps: int) -> None:
+    """--b1-times: the split route's rows only (time_b1) for the imported
+    port: config 3 at 10 MB and 256 MiB and time_split_sets, one line
+    each."""
+    from rejit_tpu_torch.utils.corpus import make_corpus
+
+    for label, size, r in (("10MB", 10_000_000, reps),
+                           ("256MiB", 256 << 20, max(1, reps // 4))):
+        text = make_corpus(size, seed=2, needle=b"matching", density=0.01)
+        emit({"phase": "times_b1", "set": "config 3", "label": label,
+              **time_b1(rt, MAIN_PATTERN, text, r, 1,
+                        wall_reps=max(2, r // 2))})
+        del text
+    for label, res in time_split_sets(rt, word_set(np.random.default_rng(7),
+                                                   250), reps // 2):
+        emit({"phase": "times_b1", "set": label, "label": "10MB", **res})
+
+
+def split_kernels_vs_plain(rt, pats, text: bytes, dev, seed: int,
+                           full: bool = True) -> dict:
+    """Max |kernel - plain| of dfa_phase1/3 on the same CUDA tensors, at
+    n = len(text) and, with `full`, at n inside the first block, with the
+    tables' dead state and with none (threads then run to their block
+    ends), and phase 3 on gathered blocks with posbase (some at a base of
+    n); the kernels' change when they stop at the dead state (must be 0);
+    whether they kept the table in shared memory. With `full`, blocks 5
+    and 6 become letters, where the threads of word patterns never die."""
+    from dataclasses import replace
+
     from rejit_tpu_torch.engine import pipeline
     from rejit_tpu_torch.kernels import dfa_cuda as dc
 
-    n = len(text)
+    if full:
+        text = text[:5 * K] + b"a" * (2 * K) + text[7 * K:]
     ct = dfa_tables(rt, pats)
-    v = pipeline.views(ct, padded(text, dev), K)
-    summ = pipeline.phase1_summaries(ct, v.cls_kb, n)
-    suf = pipeline.suffix_scan(summ, pipeline.eot_seed(ct, n))
-    C = ct.n_classes
-    err1 = max_abs_err(dc.phase1(ct.packed, C, v.cls_kb, n),
-                       dc.phase1_plain(ct.packed, C, v.cls_kb, n))
-    err3 = max_abs_err(
-        dc.phase3(ct.packed, C, suf, v.cls_kb, v.startsb, n),
-        dc.phase3_plain(ct.packed, C, suf, v.cls_kb, v.startsb, n),
-    )
-    # Gathered blocks as the fast-forward route sends them, plus columns
-    # masked by a base of n.
+    t = padded(text, dev)
+    err = {"dfa_phase1": 0, "dfa_phase3": 0}
+    runs = [(len(text), ct)]
+    if full:
+        runs += [(K - 3, ct), (len(text), replace(ct, dead=-1))]
+    outs = []
+    for n, tabs in runs:
+        summ = dc.phase1(tabs, t, n, K)
+        err["dfa_phase1"] = max(err["dfa_phase1"], max_abs_err(
+            summ, dc.phase1_plain(tabs, t, n, K)))
+        suf = pipeline.suffix_scan(summ, pipeline.eot_seed(tabs, n))
+        li = dc.phase3(tabs, suf, t, n, K)
+        err["dfa_phase3"] = max(err["dfa_phase3"], max_abs_err(
+            li, dc.phase3_plain(tabs, suf, t, n, K)))
+        outs.append((summ, li))
+    dead_stop = max_abs_err(outs[0], outs[-1])
+    # Gathered blocks as the fast-forward route sends them, plus blocks at
+    # a base of n (their bytes run past the text's end).
+    n = len(text)
+    suf = pipeline.suffix_scan(outs[0][0], pipeline.eot_seed(ct, n))
     rng = np.random.default_rng(seed)
-    nb = v.nb
+    nb = t.shape[0] // K
     pick = np.sort(rng.choice(nb, size=max(1, nb // 3), replace=False))
     idx = torch.as_tensor(pick, device=dev)
     posbase = (idx * K).to(torch.int32)
-    posbase[rng.random(len(pick)) < 0.1] = n
-    sub = (tuple(x.index_select(0, idx) for x in suf),
-           v.cls_kb.index_select(1, idx), v.startsb.index_select(1, idx))
-    err3p = max_abs_err(
-        dc.phase3(ct.packed, C, sub[0], sub[1], sub[2], n, posbase),
-        dc.phase3_plain(ct.packed, C, sub[0], sub[1], sub[2], n, posbase),
-    )
+    posbase[torch.as_tensor(rng.random(len(pick)) < 0.1, device=dev)] = n
+    sub = tuple(x.index_select(0, idx) for x in suf)
+    err["dfa_phase3"] = max(err["dfa_phase3"], max_abs_err(
+        dc.phase3(ct, sub, t, n, K, posbase),
+        dc.phase3_plain(ct, sub, t, n, K, posbase)))
     torch.cuda.synchronize()
-    return {"dfa_phase1": err1, "dfa_phase3": max(err3, err3p),
-            "smem_table": dc.table_in_smem(ct.n_states, C)}
+    return {**err, "dead_stop_change": dead_stop,
+            "smem_table": dc.table_in_smem(ct.n_states, ct.n_classes, K)}
+
+
+def b1_calls(ct, t: torch.Tensor, n: int) -> dict:
+    """Thunks of the split route's pieces on this padded CUDA text:
+    dfa_phase1 and dfa_phase3 (and their plain versions), the suffix scan
+    and l_arrays_device. With --port-root naming an older checkout whose
+    kernels took int32 class and start-state views (`pipeline.views`), its
+    kernels are driven through that interface (no plain versions), for the
+    before column."""
+    from rejit_tpu_torch.engine import pipeline
+    from rejit_tpu_torch.kernels import dfa_cuda as dc
+
+    eseed = pipeline.eot_seed(ct, n)
+    if hasattr(pipeline, "views"):
+        v = pipeline.views(ct, t, K)
+        C = ct.n_classes
+        summ = dc.phase1(ct.packed, C, v.cls_kb, n)
+        suf = pipeline.suffix_scan(summ, eseed)
+        calls = {
+            "dfa_phase1": lambda: dc.phase1(ct.packed, C, v.cls_kb, n),
+            "dfa_phase3": lambda: dc.phase3(ct.packed, C, suf, v.cls_kb,
+                                            v.startsb, n),
+        }
+    else:
+        summ = dc.phase1(ct, t, n, K)
+        suf = pipeline.suffix_scan(summ, eseed)
+        calls = {
+            "dfa_phase1": lambda: dc.phase1(ct, t, n, K),
+            "dfa_phase3": lambda: dc.phase3(ct, suf, t, n, K),
+            "dfa_phase1_plain": lambda: dc.phase1_plain(ct, t, n, K),
+            "dfa_phase3_plain": lambda: dc.phase3_plain(ct, suf, t, n, K),
+        }
+    calls["suffix_scan"] = lambda: pipeline.suffix_scan(summ, eseed)
+    calls["l_arrays_device"] = lambda: pipeline.l_arrays_device(ct, t, n,
+                                                                block=K)
+    return calls, suf
+
+
+def b1_work(ct, t: torch.Tensor, n: int, suf) -> dict:
+    """The work dfa_phase1 and dfa_phase3 need on this padded text, counted
+    exactly by torch passes on the card: the live steps (from a state other
+    than the dead one, at a position below n, inside the block) of every
+    (block, start state) and of every boundary; phase 3's splices (end
+    state not dead: one m_suf read) and their hits (m_suf >= 0: one i_suf
+    read)."""
+    from rejit_tpu_torch.kernels import dfa_cuda as dc
+
+    C, Q, dead = ct.n_classes, ct.n_states, ct.dead
+    cls_kb, startsb, pos_kb = dc.block_views(ct, t, K)
+    nb = cls_kb.shape[1]
+    S = torch.arange(Q, dtype=torch.int32, device=t.device)[:, None]
+    S = S.repeat(1, nb)
+    p1 = torch.zeros((), dtype=torch.int64, device=t.device)
+    for k in range(K):
+        active = (pos_kb[k] < n)[None, :] & (S != dead)
+        p1 += active.sum()
+        val = ct.packed[(S * C + cls_kb[k][None, :]).long()]
+        S = torch.where(active, val >> 8, S)
+    del S
+    rows = torch.arange(K, dtype=torch.int32, device=t.device)[:, None]
+    cls_pad = torch.cat([cls_kb, torch.zeros_like(cls_kb)], dim=0)
+    S = startsb
+    p3 = torch.zeros((), dtype=torch.int64, device=t.device)
+    for j in range(K):
+        active = (rows + j < K) & (pos_kb + j < n) & (S != dead)
+        p3 += active.sum()
+        val = ct.packed[(S * C + cls_pad[j:j + K]).long()]
+        S = torch.where(active, val >> 8, S)
+    live = S != dead
+    hits = live & (torch.gather(suf[1], 1, S.T.long()).T >= 0)
+    return {"p1_steps": int(p1), "p3_steps": int(p3),
+            "p3_splices": int(live.sum()), "p3_tail_hits": int(hits.sum())}
 
 
 def instances(Q: int) -> tuple:
@@ -315,10 +471,9 @@ def re_spans(pattern: bytes, text: bytes) -> list:
     return [m.span() for m in re.finditer(pattern, text)]
 
 
-def bound(nbytes: float, n: int, Q: int) -> dict:
-    """The larger of `nbytes` over HBM bandwidth and Q automaton steps per
-    text byte below n over the lane issue rate."""
-    ops = ALU_OPS_PER_STEP * n * Q
+def bound(nbytes: float, ops: float) -> dict:
+    """The larger of `nbytes` over HBM bandwidth and `ops` ALU
+    instructions over the lane issue rate."""
     tb, to = nbytes / HBM_BYTES_PER_S, ops / PEAK_LANE_OPS_PER_S
     return {"bound_ms": max(tb, to) * 1e3,
             "bound_by": "bytes" if tb >= to else "operations",
@@ -326,26 +481,78 @@ def bound(nbytes: float, n: int, Q: int) -> dict:
 
 
 def kernel_bounds(n: int, P: int, Q: int, C: int) -> dict:
-    """{kernel: {bound_ms, bound_by, bytes, ops}}: the larger of the bytes
-    each function must move (inputs read once, outputs written once) over
-    HBM bandwidth and its ALU instructions over the lane issue rate. Each
-    function needs Q automaton steps per text byte below n: phase 1 runs
-    every start state through its block, phase 3's L/I and the fused
-    function's can be composed backward over the Q states (their kernels
-    take (K+1)/2 more steps per byte, one thread per boundary). The fused
-    function reads the uint8 text and writes L (4 B a byte, one pattern),
-    or nothing in the count mode."""
+    """{kernel: {bound_ms, bound_by, bytes, ops}} of the fused function:
+    the larger of the bytes it must move (the uint8 text and the table
+    read once, L written once: 4 B a byte for one pattern, nothing in the
+    count mode) over HBM bandwidth and its ALU instructions over the lane
+    issue rate, at Q automaton steps per text byte below n (its L can be
+    composed backward over the Q states)."""
+    tab = Q * C * 4
+    ops = ALU_OPS_PER_STEP * min(n, P) * Q
+    return {
+        "schain_fused": bound(P + tab + 4 * P, ops),
+        "schain_fused_count": bound(P + tab, ops),
+    }
+
+
+def b1_bounds(P: int, Q: int, C: int, work: dict) -> dict:
+    """{kernel: {bound_ms, bound_by, bytes, ops}} of dfa_phase1 and
+    dfa_phase3. Bytes: the uint8 text once, the table and the 256-entry
+    byte maps, the outputs ((f, m, i) each (nb, Q); L and I each P int32)
+    and, for phase 3, the suffix entries its splices read (`work`).
+    Operations: the live steps these inputs need (`work`, counted on the
+    card by b1_work), ALU_OPS_PER_STEP each."""
     nb = P // K
     tab = Q * C * 4
-    steps = min(n, P)
-    p1 = P * 4 + tab + 3 * nb * Q * 4
-    p3 = 2 * P * 4 + 2 * nb * Q * 4 + tab + 2 * P * 4
-    return {
-        "dfa_phase1": bound(p1, steps, Q),
-        "dfa_phase3": bound(p3, steps, Q),
-        "schain_fused": bound(P + tab + 4 * P, steps, Q),
-        "schain_fused_count": bound(P + tab, steps, Q),
-    }
+    p1 = P + tab + 256 * 4 + 3 * nb * Q * 4
+    p3 = (P + tab + 2 * 256 * 4 + 2 * P * 4
+          + 4 * (work["p3_splices"] + work["p3_tail_hits"]))
+    return {"dfa_phase1": bound(p1, ALU_OPS_PER_STEP * work["p1_steps"]),
+            "dfa_phase3": bound(p3, ALU_OPS_PER_STEP * work["p3_steps"])}
+
+
+def time_b1(rt, pats, text: bytes, reps: int, plain_reps: int,
+            wall_reps: int = 0) -> dict:
+    """The split route on this text (the pattern's DFA tables, K = 32):
+    device times of dfa_phase1, dfa_phase3, their plain versions, the
+    suffix scan and l_arrays_device by CUDA events; l_arrays_device's peak
+    device memory beyond its inputs; with wall_reps, match_all_arrays's
+    host-clock wall on the split route; and, for this checkout's port, the
+    work these inputs need (b1_work) and the kernels' bounds from it."""
+    from rejit_tpu_torch.kernels import dfa_cuda as dc
+
+    q = rt.Pattern(pats, rt.Config(engine="dfa", schain_fused="off"),
+                   device=DEV)
+    ct = q.ct
+    n = len(text)
+    t = padded(text, DEV)
+    P = t.shape[0]
+    Q, C = ct.n_states, ct.n_classes
+    res = {"n": n, "P": P, "Q": Q, "C": C, "table_bytes": Q * C * 4}
+    calls, suf = b1_calls(ct, t, n)
+    for name, fn in calls.items():
+        if name.endswith("_plain"):
+            res[name + "_ms"] = time_ms(fn, plain_reps, 1)
+        else:
+            res[name + "_ms"] = time_ms(fn, reps)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    calls["l_arrays_device"]()
+    torch.cuda.synchronize()
+    res["l_arrays_device_peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                         - base)
+    if hasattr(dc, "block_views"):
+        res["table_in_smem"] = dc.table_in_smem(Q, C, K)
+        work = b1_work(ct, t, n, suf)
+        res.update(work)
+        for name, b in b1_bounds(P, Q, C, work).items():
+            res[name + "_bound_ms"] = b["bound_ms"]
+            res[name + "_bound_by"] = b["bound_by"]
+    del calls, suf
+    if wall_reps:
+        res["match_all_split_wall"] = wall_s(lambda: q.match_all_arrays(text),
+                                             wall_reps)
+    return res
 
 
 def kernel_split(fn, reps: int) -> dict:
@@ -399,7 +606,7 @@ def time_launches(rt, text: bytes, label: str, reps: int) -> dict:
 def time_size(rt, text: bytes, label: str, reps: int,
               wall_reps: int) -> tuple:
     """Device times of each stage and entry-point walls at one text size."""
-    from rejit_tpu_torch.engine import pipeline, select
+    from rejit_tpu_torch.engine import select
     from rejit_tpu_torch.kernels import dfa_cuda as dc
     from rejit_tpu_torch.kernels import schain_cuda as sc
 
@@ -458,34 +665,14 @@ def time_size(rt, text: bytes, label: str, reps: int,
     sc.l_arrays_device_staged(ct, dev_text, n, block=K)
     res["schain_fused_launches_per_call"] = sc.LAUNCHES["schain_fused"]
 
-    # The split route (as measured before the fused route existed).
-    v = pipeline.views(ct, dev_text, K)
-    summ = pipeline.phase1_summaries(ct, v.cls_kb, n)
-    eseed = pipeline.eot_seed(ct, n)
-    suf = pipeline.suffix_scan(summ, eseed)
-    res.update({
-        "views_ms": time_ms(lambda: pipeline.views(ct, dev_text, K), reps),
-        "dfa_phase1_ms": time_ms(
-            lambda: dc.phase1(ct.packed, C, v.cls_kb, n), reps),
-        "dfa_phase1_plain_ms": time_ms(
-            lambda: dc.phase1_plain(ct.packed, C, v.cls_kb, n), plain_reps, 1),
-        "suffix_scan_ms": time_ms(
-            lambda: pipeline.suffix_scan(summ, eseed), reps),
-        "dfa_phase3_ms": time_ms(
-            lambda: dc.phase3(ct.packed, C, suf, v.cls_kb, v.startsb, n),
-            reps),
-        "dfa_phase3_plain_ms": time_ms(
-            lambda: dc.phase3_plain(ct.packed, C, suf, v.cls_kb, v.startsb,
-                                    n), plain_reps, 1),
-        "l_arrays_device_ms": time_ms(
-            lambda: pipeline.l_arrays_device(ct, dev_text, n, block=K), reps),
-    })
+    # The split route (the fused route's tables, with schain_fused='off').
+    del dev_text
+    res.update(time_b1(rt, MAIN_PATTERN, text, reps, plain_reps))
     for name, b in kernel_bounds(n, P, Q, C).items():
         res[name + "_bound_ms"] = b["bound_ms"]
         res[name + "_bound_by"] = b["bound_by"]
     # suffix scan: its summaries read once and its suffixes written once
-    res["suffix_scan_bound_ms"] = 6 * v.nb * Q * 4 / HBM_BYTES_PER_S * 1e3
-    del v, summ, suf, dev_text
+    res["suffix_scan_bound_ms"] = 6 * (P // K) * Q * 4 / HBM_BYTES_PER_S * 1e3
 
     # Entry points end to end (host clock, after a warm-up).
     corpus = rt.stage(text, DEV)
@@ -748,9 +935,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device available", file=sys.stderr)
         return 1
-    quick = "--quick" in sys.argv[1:]
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    args = sys.argv[1:]
+    quick = "--quick" in args
+    root = os.path.dirname(os.path.abspath(__file__))
+    if "--port-root" in args:
+        root = os.path.abspath(args[args.index("--port-root") + 1])
+    sys.path.insert(0, root)
     import rejit_tpu_torch as rt
+    check(os.path.abspath(rt.__file__).startswith(root + os.sep),
+          f"rejit_tpu_torch imported from {rt.__file__}, not {root}")
     from rejit_tpu_torch.kernels import build
     from rejit_tpu_torch.kernels import dfa_cuda as dc
     from rejit_tpu_torch.kernels import extract_cuda as xc
@@ -782,7 +975,15 @@ def main() -> int:
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "sms": props.multi_processor_count, "build_s": build_s,
-          "ptxas": {k: v["ptxas"] for k, v in built.items()}})
+          "ptxas": {k: v["ptxas"] for k, v in built.items()},
+          "port": rt.__file__})
+    if "--b1-times" in args:
+        b1_times(rt, reps=20)
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     # 2. Kernels against their plain versions, bit for bit.
     main_text = make_corpus(10_000_000, seed=2, needle=b"matching",
@@ -791,40 +992,52 @@ def main() -> int:
     errs = {"dfa_phase1": 0, "dfa_phase3": 0, "schain_fused": 0}
     rng = np.random.default_rng(7)
     alphabet = np.frombuffer(b"abfo liner\n singing! foo bar baz line", np.uint8)
-    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
-    words = sorted({rng.choice(letters, size=int(rng.integers(5, 9))).tobytes()
-                    for _ in range(250)})
-    cases = [(str(pats), pats, alphabet)
+    words = word_set(rng, 250)
+    cases = [(str(pats), pats, alphabet, True)
              for pats in (rb"\b\w+ing\b", rb"[a-z]+", rb"foo|bar|baz", rb"a*",
                           rb"^line", TOKENIZER)]
-    # 250 random words: a table of ~88 KB, past the 48 KB kept in shared
-    # memory, so the split kernels read it through the read-only cache; too
-    # large for the fused kernel.
-    cases.append(("250-word alternation", b"|".join(words),
-                  np.frombuffer(b"abcdefghijklmnopqrstuvwxyz  ", np.uint8)))
-    for j, (label, pats, chars) in enumerate(cases):
+    # 250 random words: Q = 871, C = 27, a 94 KB table, which the split
+    # kernels keep in shared memory; too large for the fused kernel. 1000
+    # words: a table past the shared-memory limit, read through the
+    # read-only cache.
+    cases.append(("250-word alternation", b"|".join(words), WORD_CHARS, True))
+    cases.append(("1000-word alternation",
+                  b"|".join(word_set(np.random.default_rng(11), 1000)),
+                  WORD_CHARS, False))
+    for j, (label, pats, chars, in_smem) in enumerate(cases):
         size = 200_000 + 37 + j  # n is not a multiple of K
         text = rng.choice(chars, size=size).tobytes()
         e = split_kernels_vs_plain(rt, pats, text, DEV, seed=j)
+        ct = dfa_tables(rt, pats)
         emit({"phase": "kernel_vs_plain", "patterns": label, "n": size,
-              "max_abs_err": e})
-        check(e.pop("smem_table") == (j < len(cases) - 1),
+              "Q": ct.n_states, "C": ct.n_classes,
+              "table_bytes": ct.packed.numel() * 4, "max_abs_err": e})
+        check(e.pop("smem_table") == in_smem,
               f"{label}: unexpected table placement")
+        check(e.pop("dead_stop_change") == 0,
+              f"{label}: stopping at the dead state changed the outputs")
         for k in e:
             errs[k] = max(errs[k], e[k])
-    e = split_kernels_vs_plain(rt, MAIN_PATTERN, main_text, DEV, seed=99)
-    emit({"phase": "kernel_vs_plain", "patterns": "main path shapes",
-          "n": len(main_text), "max_abs_err": e})
-    e.pop("smem_table")
-    for k in e:
-        errs[k] = max(errs[k], e[k])
+    # The split route's shapes at 10 MB: the main text, and the 250-word
+    # alternation on letters (its table in shared memory).
+    words10 = words_text(len(main_text))
+    for label, pats, text in (("main path shapes", MAIN_PATTERN, main_text),
+                              ("250-word alternation", b"|".join(words),
+                               words10)):
+        e = split_kernels_vs_plain(rt, pats, text, DEV, seed=99, full=False)
+        emit({"phase": "kernel_vs_plain", "patterns": label,
+              "n": len(text), "max_abs_err": e})
+        e.pop("smem_table")
+        e.pop("dead_stop_change")
+        for k in e:
+            errs[k] = max(errs[k], e[k])
 
     # schain_fused: 6 sets of the split phase (Q = 2..7), a 14- and a
     # 30-state set (sweep widths 16 and 32) and two large-Q sets (82 and
     # 242 states: 16 and 8 sub-blocks a tile), dense and sparse texts.
     long_words = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz" * 4 + b" ",
                                np.uint8)
-    fcases = cases[:-1] + [
+    fcases = [c[:3] for c in cases[:-2]] + [
         (r"\b(the|and|for|with|from)\b", rb"\b(the|and|for|with|from)\b",
          np.frombuffer(b"theandforwithfrom  ", np.uint8)),
         (r"\b[a-z]{20,28}\b", rb"\b[a-z]{20,28}\b",
@@ -967,8 +1180,7 @@ def main() -> int:
     del corpus
 
     # 4. The split kernels on their paths, and the tokenizer.
-    wtext = rng.choice(np.frombuffer(b"abcdefghijklmnopqrstuvwxyz  ",
-                                     np.uint8), size=1 << 20).tobytes()
+    wtext = rng.choice(WORD_CHARS, size=1 << 20).tobytes()
     wp = rt.Pattern(b"|".join(words), device=DEV)
     check(not wp.fused, "250-word alternation took the fused route")
     reset()
@@ -985,9 +1197,9 @@ def main() -> int:
     check(spans_of(off_out) == want, "split route: spans differ from re")
     split_launches = {k: words_launches[k] + off_launches[k]
                       for k in ("dfa_phase1", "dfa_phase3")}
-    check(all(v > 0 for v in split_launches.values())
-          and words_launches["schain_fused"] == 0
-          and off_launches["schain_fused"] == 0,
+    check(all(got["dfa_phase1"] > 0 and got["dfa_phase3"] > 0
+              and got["schain_fused"] == 0
+              for got in (words_launches, off_launches)),
           f"split paths: {words_launches} {off_launches}")
     emit({"phase": "split_paths", "words_n": len(wtext),
           "words_matches": len(wout[0]), "words_launches": words_launches,
@@ -1000,17 +1212,16 @@ def main() -> int:
     tok_cpu = rt.Pattern(TOKENIZER, device="cpu").tokenize(tok_text)
     check(tok == tok_cpu, "tokenizer: card and CPU runs differ")
     check(tok_launches["schain_fused"] > 0, f"tokenizer: {tok_launches}")
-    ct = off.ct
     from rejit_tpu_torch.engine import pipeline
-    v = pipeline.views(ct, padded(sp_text, DEV), K)
-    _, _, n_cand = pipeline.ff_phase12(ct, v, len(sp_text))
-    cand_frac = int(n_cand) / v.nb
+    _, cand, n_cand = pipeline.ff_phase12(off.ct, padded(sp_text, DEV),
+                                          len(sp_text), K)
+    cand_frac = int(n_cand) / cand.shape[0]
     check(cand_frac < 0.75, f"sparse text is not sparse: {cand_frac}")
-    del v
     reset()
     ff_out = off.match_all_arrays(sp_text)
     ff_launches = launches()
-    check(ff_launches["dfa_phase3"] > 0, f"FF route: {ff_launches}")
+    check(ff_launches["dfa_phase1"] > 0 and ff_launches["dfa_phase3"] > 0,
+          f"FF route: {ff_launches}")
     ff_fused = p.match_all_arrays(sp_text)
     check(all(np.array_equal(a, b) for a, b in zip(ff_out, ff_fused)),
           "FF route and fused route differ")
@@ -1127,6 +1338,10 @@ def main() -> int:
         emit({"phase": "times_literal_engines", **tl10})
         tc10 = time_config1(rt, c1_text, "10MiB", reps=10)
         emit({"phase": "times_config1", **tc10})
+        del words10
+        for label, res in time_split_sets(rt, words, reps=10):
+            emit({"phase": "times_split", "set": label, "label": "10MB",
+                  **res})
         del main_text, sp_text, c1_text
         big = make_corpus(256 << 20, seed=2, needle=b"matching",
                           density=0.01)

@@ -12,7 +12,8 @@ algebra (the JAX package's engine/reference.py documents it):
 
 Phases 1 and 3 go through kernels/dfa_cuda.py: hand-written CUDA kernels
 for tensors on the card, their plain torch versions for tensors on the CPU.
-Phase 2 is torch ops on either device.
+Both read the padded uint8 text and classify it themselves. Phase 2 is
+torch ops on either device.
 
 Texts are padded to a multiple of K and the true length `n` is a Python
 int; steps past `n` are identity, which makes padding invisible (EOT
@@ -43,9 +44,8 @@ class DeviceTables:
     packed: torch.Tensor        # (Q*C,) int32: next*256 + (accept_pid+1)
     accept_eot: torch.Tensor    # (Q,) int32
     start_by_ctx: torch.Tensor  # (4,) int32
-    ctx_of: torch.Tensor        # (256,) int32: byte -> context class
     n_classes: int
-    dead: int
+    dead: int                   # absorbing, never-accepting state, or -1
     ff_class: torch.Tensor      # (C,) int32: fast-forward candidate classes
     n_patterns: int
     # The fused route (kernels/schain_cuda.py):
@@ -77,11 +77,18 @@ def device_tables_from_arrays(
 ) -> DeviceTables:
     """DeviceTables from plain numpy arrays (for example the fields of a
     DFATables from either package), placed on `device`, with the fused
-    route's static tables and plan."""
+    route's static tables and plan. `dead` (the state the split kernels
+    stop at, or -1) must be absorbing and never accept."""
     next_ = np.asarray(next)
     accept = np.asarray(accept)
     if n_patterns >= 255:
         raise ValueError("pattern id must fit the packed accept byte")
+    dead = int(dead)
+    if dead >= 0 and not (np.all(next_[dead] == dead)
+                          and np.all(accept[dead] < 0)
+                          and accept_eot[dead] < 0):
+        raise ValueError(f"state {dead} is not an absorbing, never-accepting "
+                         "dead state")
     packed = (
         next_.astype(np.int32) * 256 + (accept.astype(np.int32) + 1)
     ).reshape(-1)
@@ -101,9 +108,8 @@ def device_tables_from_arrays(
         packed=put(packed),
         accept_eot=put(accept_eot),
         start_by_ctx=put(start_states),
-        ctx_of=put(ctx),
         n_classes=int(next_.shape[1]),
-        dead=int(dead),
+        dead=dead,
         ff_class=put(ff_class_mask(next_, accept, start_states, dead)),
         n_patterns=int(n_patterns),
         static=st,
@@ -179,66 +185,23 @@ def eot_seed(ct: DeviceTables, n: int) -> Summary:
 # ---------------------------------------------------------------------------
 
 
-def phase1_summaries(ct: DeviceTables, cls_kb: torch.Tensor, n: int) -> Summary:
-    """Per-block forward (f, m, i) summaries, each (nb, Q).
-    cls_kb: (K, nb) int32, row k = byte k of each block."""
-    return dfa_cuda.phase1(ct.packed, ct.n_classes, cls_kb, n)
+def phase1_summaries(ct: DeviceTables, text: torch.Tensor, n: int,
+                     block: int) -> Summary:
+    """Per-block forward (f, m, i) summaries, each (nb, Q), of the padded
+    uint8 text."""
+    return dfa_cuda.phase1(ct, text, n, block)
 
 
-def phase3_emit(ct: DeviceTables, suf: Summary, cls_kb, startsb, n: int,
-                posbase=None):
+def phase3_emit(ct: DeviceTables, suf: Summary, text: torch.Tensor, n: int,
+                block: int, posbase=None):
     """Per-boundary (L, I), each (K*nb,) in boundary order b*K + k."""
-    return dfa_cuda.phase3(
-        ct.packed, ct.n_classes, suf, cls_kb, startsb, n, posbase
-    )
+    return dfa_cuda.phase3(ct, suf, text, n, block, posbase)
 
 
-def classify(ct: DeviceTables, text: torch.Tensor):
-    """(cls, ctx) int32 tensors for a uint8 text."""
-    ti = text.to(torch.int32)
-    return ct.class_of.index_select(0, ti), ct.ctx_of.index_select(0, ti)
-
-
-def block_views(arr: torch.Tensor, nb: int, K: int) -> torch.Tensor:
-    """(P,) -> (K, nb) forward column-major copy (row k = byte k of each
-    block), contiguous as the kernels take it."""
-    return arr.view(nb, K).T.contiguous()
-
-
-@dataclass
-class BlockViews:
-    """A padded text's per-block inputs of phases 1 and 3."""
-
-    cls_kb: torch.Tensor    # (K, nb) int32 byte classes
-    startsb: torch.Tensor   # (K, nb) int32 start state per boundary
-    start_eot: torch.Tensor  # () int32 start state at boundary P
-    K: int
-
-    @property
-    def nb(self) -> int:
-        return self.cls_kb.shape[1]
-
-
-def views(ct: DeviceTables, text: torch.Tensor, block: int) -> BlockViews:
-    """Classify `text` (uint8, length P a multiple of `block`) into the
-    per-block views. The thread at boundary s starts in the start state
-    of the context of byte s-1 (s = 0: the begin context)."""
-    P = text.shape[0]
-    K = block
-    if P == 0 or P % K:
-        raise ValueError(f"text length {P} is not a positive multiple of {K}")
-    nb = P // K
-    cls, ctx = classify(ct, text)
-    starts = torch.cat(
-        [ct.start_by_ctx[:1], ct.start_by_ctx.index_select(0, ctx[:-1])]
-    )
-    start_eot = ct.start_by_ctx[ctx[-1].long()]
-    return BlockViews(
-        cls_kb=block_views(cls, nb, K),
-        startsb=block_views(starts, nb, K),
-        start_eot=start_eot,
-        K=K,
-    )
+def start_eot(ct: DeviceTables, text: torch.Tensor) -> torch.Tensor:
+    """() int32: the start state at boundary P, after the text's last
+    byte."""
+    return ct.start_of_byte[text[-1].long()]
 
 
 def finish(ct: DeviceTables, start_eot: torch.Tensor, L, I, n: int):
@@ -261,11 +224,10 @@ def l_arrays_device(
 
     Entries for boundaries > n are -1. `text` is uint8 of length P, a
     multiple of `block`; `n` is the true byte length."""
-    v = views(ct, text, block)
-    summaries = phase1_summaries(ct, v.cls_kb, n)
+    summaries = phase1_summaries(ct, text, n, block)
     suf = suffix_scan(summaries, eot_seed(ct, n))
-    L, I = phase3_emit(ct, suf, v.cls_kb, v.startsb, n)
-    return finish(ct, v.start_eot, L, I, n)
+    L, I = phase3_emit(ct, suf, text, n, block)
+    return finish(ct, start_eot(ct, text), L, I, n)
 
 
 # ---------------------------------------------------------------------------
@@ -273,42 +235,44 @@ def l_arrays_device(
 # ---------------------------------------------------------------------------
 
 
-def ff_phase12(ct: DeviceTables, v: BlockViews, n: int):
+def ff_phase12(ct: DeviceTables, text: torch.Tensor, n: int, block: int):
     """Phase 1+2 plus the candidate-block mask: (suf (nb, Q) x3,
-    cand_block (nb,) bool, n_cand_blocks () tensor)."""
-    summaries = phase1_summaries(ct, v.cls_kb, n)
+    cand_block (nb,) bool, n_cand_blocks () tensor). A block is a
+    candidate when one of its bytes is in a fast-forward class, read from
+    the text through a 256-entry byte table (ff_class of class_of)."""
+    K = block
+    nb = text.shape[0] // K
+    summaries = phase1_summaries(ct, text, n, K)
     suf = suffix_scan(summaries, eot_seed(ct, n))
-    is_cand = ct.ff_class.index_select(0, v.cls_kb.view(-1)) > 0
-    cand_block = is_cand.view(v.K, v.nb).any(dim=0)
+    cand_byte = ct.ff_class.index_select(0, ct.class_of)
+    is_cand = cand_byte.index_select(0, text.to(torch.int32)) > 0
+    cand_block = is_cand.view(nb, K).any(dim=1)
     # Blocks past the one holding boundary n see no candidates (positions
     # >= n); that block itself must run (it emits L[n] via the seed).
-    last = n // v.K
-    if last < v.nb:
+    last = n // K
+    if last < nb:
         cand_block[last] = True
     cand_block[last + 1:] = False
     return suf, cand_block, cand_block.sum()
 
 
-def ff_phase3(ct: DeviceTables, v: BlockViews, n: int, suf: Summary,
-              cand_block: torch.Tensor):
+def ff_phase3(ct: DeviceTables, text: torch.Tensor, n: int, suf: Summary,
+              cand_block: torch.Tensor, block: int):
     """Phase 3 restricted to candidate blocks, scattered back to (P+1,).
     The gathered blocks keep their byte offsets through `posbase`."""
-    K, nb = v.K, v.nb
+    K = block
+    nb = cand_block.shape[0]
     idx = torch.nonzero(cand_block).squeeze(1)
     L2 = torch.full((nb, K), -1, dtype=torch.int32, device=idx.device)
     I2 = torch.full((nb, K), -1, dtype=torch.int32, device=idx.device)
     if idx.numel():
         suf_c = tuple(x.index_select(0, idx) for x in suf)
         L_c, I_c = phase3_emit(
-            ct, suf_c,
-            v.cls_kb.index_select(1, idx),
-            v.startsb.index_select(1, idx),
-            n,
-            posbase=(idx * K).to(torch.int32),
+            ct, suf_c, text, n, K, posbase=(idx * K).to(torch.int32),
         )
         L2[idx] = L_c.view(-1, K)
         I2[idx] = I_c.view(-1, K)
-    return finish(ct, v.start_eot, L2.view(-1), I2.view(-1), n)
+    return finish(ct, start_eot(ct, text), L2.view(-1), I2.view(-1), n)
 
 
 def l_arrays_device_ff(
@@ -321,9 +285,9 @@ def l_arrays_device_ff(
     When filtering would skip less than `min_skip_fraction` of the blocks
     (and not `force`, the rejit force_ff analog), phase 3 runs on every
     block, reusing the phase 1+2 result."""
-    v = views(ct, text, block)
-    suf, cand_block, n_cand = ff_phase12(ct, v, n)
-    if not force and int(n_cand) >= v.nb * (1.0 - min_skip_fraction):
-        L, I = phase3_emit(ct, suf, v.cls_kb, v.startsb, n)
-        return finish(ct, v.start_eot, L, I, n)
-    return ff_phase3(ct, v, n, suf, cand_block)
+    suf, cand_block, n_cand = ff_phase12(ct, text, n, block)
+    nb = cand_block.shape[0]
+    if not force and int(n_cand) >= nb * (1.0 - min_skip_fraction):
+        L, I = phase3_emit(ct, suf, text, n, block)
+        return finish(ct, start_eot(ct, text), L, I, n)
+    return ff_phase3(ct, text, n, suf, cand_block, block)

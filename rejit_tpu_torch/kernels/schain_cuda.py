@@ -260,13 +260,10 @@ def schain_fused_plain(
     at the start state after the last byte; G = block 0's summary composed
     with its exclusive suffix."""
     P = text.shape[0]
-    v = pipeline.views(ct, text, block)
-    summ = dfa_cuda.phase1_plain(ct.packed, ct.n_classes, v.cls_kb, n)
+    summ = dfa_cuda.phase1_plain(ct, text, n, block)
     suf = pipeline.suffix_scan(summ, tuple(seed))
-    L, I = dfa_cuda.phase3_plain(
-        ct.packed, ct.n_classes, suf, v.cls_kb, v.startsb, n
-    )
-    st = v.start_eot.view(1).long()
+    L, I = dfa_cuda.phase3_plain(ct, suf, text, n, block)
+    st = pipeline.start_eot(ct, text).view(1).long()
     L = torch.cat([L, seed[1].index_select(0, st)])
     I = torch.cat([I, seed[2].index_select(0, st)])
     beyond = torch.arange(P + 1, device=text.device) > n

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor rejit_tpu, and
 its entry points run on the card unless the caller asks for the CPU."""
+import dataclasses
 import os
 import re
 import subprocess
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 import rejit_tpu_torch
+from rejit_tpu_torch.engine import pipeline
 from rejit_tpu_torch.kernels import dfa_cuda, schain_cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -85,37 +87,50 @@ def test_pattern_without_device_raises_without_cuda(monkeypatch):
 
 
 def _phase_inputs():
-    packed = torch.arange(12, dtype=torch.int32)
-    cls_kb = torch.zeros((8, 4), dtype=torch.int32)
-    return packed, cls_kb
+    ct = rejit_tpu_torch.Pattern(
+        rb"\w+ing", rejit_tpu_torch.Config(engine="dfa"), device="cpu").ct
+    return ct, torch.zeros(32, dtype=torch.uint8)
 
 
 def test_wrappers_check_dtype_shape_and_contiguity():
-    packed, cls_kb = _phase_inputs()
+    ct, text = _phase_inputs()
     with pytest.raises(TypeError):
-        dfa_cuda.phase1(packed.long(), 3, cls_kb, 10)
+        dfa_cuda.phase1(dataclasses.replace(ct, packed=ct.packed.long()),
+                        text, 10, 8)
     with pytest.raises(TypeError):
-        dfa_cuda.phase1(packed, 3, cls_kb.long(), 10)
+        dfa_cuda.phase1(ct, text.int(), 10, 8)
     with pytest.raises(ValueError):
-        dfa_cuda.phase1(packed, 5, cls_kb, 10)
+        dfa_cuda.phase1(dataclasses.replace(ct, n_classes=ct.packed.numel()
+                                            + 1), text, 10, 8)
     with pytest.raises(ValueError):
-        dfa_cuda.phase1(packed, 3, cls_kb.T, 10)
-    suf = tuple(torch.zeros((4, 4), dtype=torch.int32) for _ in range(3))
+        dfa_cuda.phase1(ct, text[::2], 10, 8)
     with pytest.raises(ValueError):
-        dfa_cuda.phase3(packed, 3, suf, cls_kb, cls_kb[:, :3], 10)
+        dfa_cuda.phase1(ct, text.view(4, 8), 10, 8)
     with pytest.raises(ValueError):
-        dfa_cuda.phase3(packed, 3, suf, cls_kb, cls_kb, 10,
+        dfa_cuda.phase1(ct, text[:30], 10, 8)
+    with pytest.raises(ValueError):
+        dfa_cuda.phase1(dataclasses.replace(ct, dead=ct.n_states), text, 10,
+                        8)
+    Q = ct.n_states
+    suf = tuple(torch.zeros((4, Q), dtype=torch.int32) for _ in range(3))
+    with pytest.raises(ValueError):
+        dfa_cuda.phase3(ct, tuple(x[:3] for x in suf), text, 10, 8)
+    with pytest.raises(ValueError):
+        dfa_cuda.phase3(ct, suf, text, 10, 8,
                         posbase=torch.zeros(5, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        pipeline.device_tables_from_arrays(
+            np.zeros(256, np.int32), np.array([[1], [1]]),
+            np.array([[-1], [-1]]), np.array([-1, -1]), np.array([1] * 4),
+            0, 1, device="cpu")
 
 
 def test_plain_runs_on_cpu_count_no_launch():
-    packed, cls_kb = _phase_inputs()
+    ct, text = _phase_inputs()
     dfa_cuda.reset_launches()
-    f, m, i = dfa_cuda.phase1(packed, 3, cls_kb, 10)
-    assert f.shape == (4, 4)
-    suf = (f, m, i)
-    L, I = dfa_cuda.phase3(packed, 3, suf, cls_kb, torch.zeros_like(cls_kb),
-                           10)
+    f, m, i = dfa_cuda.phase1(ct, text, 10, 8)
+    assert f.shape == (4, ct.n_states)
+    L, I = dfa_cuda.phase3(ct, (f, m, i), text, 10, 8)
     assert L.shape == (32,) and I.shape == (32,)
     assert dfa_cuda.LAUNCHES == {"dfa_phase1": 0, "dfa_phase3": 0}
     assert np.all(L.numpy()[:10] >= -1)

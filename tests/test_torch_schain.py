@@ -172,7 +172,7 @@ def test_static_tables_plan_and_meta_equal_jax(pats):
     # for its EOT row.
     _, _, start_eot = schain_pallas.stage_text(st, jnp.asarray(text),
                                                block=K, chl=CHL)
-    assert int(pipeline.views(ct, torch.from_numpy(text), K).start_eot) == (
+    assert int(pipeline.start_eot(ct, torch.from_numpy(text))) == (
         int(start_eot))
 
 
