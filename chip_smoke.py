@@ -38,7 +38,10 @@ per source, all started together), then:
    literals, at n = P, P-3, a row edge, a block edge, 1 and 0, and for the
    12 keywords on the main text; scan1d in both directions on random,
    monotone and constant int32 around its tile size and at the main path's
-   length;
+   length; schain_fused with emit_f (L and L+I modes: L, I, G, and F on
+   boundaries 0..n, F past n apart) on the same matrix of fused cases,
+   from the begin context and from another start state at byte 0, and
+   dfa_phase3 with such a start state on the 8 sets;
 3. runs the main path, `Pattern(r"\\b\\w+ing\\b").match_all_arrays(text)`
    on the 10 MB config-3 corpus, with the launch counters set to 0 just
    before and read just after: it must launch schain_fused and neither
@@ -64,7 +67,26 @@ per source, all started together), then:
 7. runs the scan1d paths, `\\b\\w{3,50}\\b` (classrun, one launch a call)
    and `\\b[a-z]{2,60}ing\\b` (classlit, two), each against the port's DFA
    route and `re`;
-8. times the kernels, their plain versions, the library calls, the split
+8. runs the stream path (`stream_phase`): first holds schain_fused with
+   emit_f against its plain version at the shapes that path gives it on
+   the 256 MiB config-3 text (an interior 8 MiB chunk, the last chunk
+   padded past its boundary n, and the ladder's 1 MiB, shifted and doubled
+   windows, each from the stream's neutral seed and its first_start);
+   then config 3 (256 MiB,
+   `match_all_stream` in 8 MiB chunks with a state directory) on the fused
+   route, killed by its progress callback after 5 chunks and resumed,
+   equal to `match_all_arrays`, one schain_fused (emit_f) call a chunk;
+   the 250-word set on 256 MiB of letters with a word planted across every
+   chunk edge on the split route, killed and resumed, equal to
+   `match_all_arrays` over pieces cut after spaces, one dfa_phase1 and one
+   dfa_phase3 call a chunk, its peak device memory; `match_first` /
+   `match_anywhere` on 256 MiB by the first-window ladder (at most 4
+   schain_fused calls; a staged corpus uploads nothing more), a pattern
+   with no match walking the ladder to the end, `match_full_stream` on
+   both routes; no chunk retried; outside --quick the stream walls (with
+   and without a state directory), emit_f against L mode and the early
+   exit against the full scan;
+9. times the kernels, their plain versions, the library calls, the split
    route's stages and the entry points' walls (host bytes and staged
    corpus) with CUDA events and the host clock, on the 10 MB text and on
    a 256 MiB text from the same generator, and config 1 at 10 MiB and
@@ -123,6 +145,7 @@ SOURCES = {
     "schain_fused": "rejit_tpu_torch/kernels/csrc/schain_fused.cu",
     "literal_spans": "rejit_tpu_torch/kernels/csrc/literal_spans.cu",
     "scan1d": "rejit_tpu_torch/kernels/csrc/scan1d.cu",
+    "schain_fused_emit_f": "rejit_tpu_torch/kernels/csrc/schain_fused.cu",
 }
 REPLACES = {
     "dfa_phase1": "rejit_tpu/kernels/dfa_pallas.py:95",
@@ -130,11 +153,14 @@ REPLACES = {
     "schain_fused": "rejit_tpu/kernels/schain_pallas.py:1070",
     "literal_spans": "rejit_tpu/kernels/extract_pallas.py:118",
     "scan1d": "rejit_tpu/kernels/scan1d.py:94",
+    "schain_fused_emit_f": "rejit_tpu/kernels/schain_pallas.py:1070 (emit_f)",
 }
 DEV = "cuda"
 WORD_CHARS = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz  ", np.uint8)
 ENTRY_POINTS = ("match_full", "match_anywhere", "match_first", "match_all",
                 "tokenize", "match_all_count")
+STREAM_CHUNK = 8 << 20   # chunk_bytes of the stream phase
+STREAM_SIZE = 256 << 20
 
 
 START = time.perf_counter()
@@ -175,9 +201,10 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def wall_s(fn, reps: int) -> dict:
-    """Host-clock walls of fn() after a warm-up: median, min, max."""
-    fn()
+def wall_s(fn, reps: int, warm: bool = True) -> dict:
+    """Host-clock walls of fn() (after a warm-up call): median, min, max."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     walls = []
     for _ in range(reps):
@@ -300,6 +327,12 @@ def split_kernels_vs_plain(rt, pats, text: bytes, dev, seed: int,
         err["dfa_phase3"] = max(err["dfa_phase3"], max_abs_err(
             li, dc.phase3_plain(tabs, suf, t, n, K)))
         outs.append((summ, li))
+        # Boundary 0 from another start state (a stream chunk's byte 0).
+        fs = (int(tabs.plan.start_by_ctx[0]) + 1) % tabs.n_states
+        err["dfa_phase3_first_start"] = max(
+            err.get("dfa_phase3_first_start", 0), max_abs_err(
+                dc.phase3(tabs, suf, t, n, K, first_start=fs),
+                dc.phase3_plain(tabs, suf, t, n, K, first_start=fs)))
     dead_stop = max_abs_err(outs[0], outs[-1])
     # Gathered blocks as the fast-forward route sends them, plus blocks at
     # a base of n (their bytes run past the text's end).
@@ -405,16 +438,18 @@ def fused_call(sc, ct, inst: str):
     return sc._schain_fused_tile
 
 
-def sweep_edges(ct, text: torch.Tensor, mode: str) -> tuple:
+def sweep_edges(ct, text: torch.Tensor, mode: str,
+                emit_f: bool = False) -> tuple:
     """(tile edge inside a chunk, chunk edge, segment edge) of the sweep
-    instance on this text in `mode`, from the geometry the wrapper takes on
-    the text's card: the segment edge in the middle of the text, the end
-    of the 5th chunk past it, and half a chunk past the end of the 6th."""
+    instance on this text in `mode` (with F written, for emit_f), from the
+    geometry the wrapper takes on the text's card: the segment edge in the
+    middle of the text, the end of the 5th chunk past it, and half a chunk
+    past the end of the 6th."""
     from rejit_tpu_torch.kernels import schain_cuda as sc
 
     P = text.shape[0]
     with torch.cuda.device(text.device):
-        blocks = sc._sweep_blocks(text.device.index, mode)
+        blocks = sc._sweep_blocks(text.device.index, mode, emit_f)
     W, _, tpc, nseg = sc.sweep_geometry(ct.n_states, P, blocks)
     check(tpc > 1, f"{P} bytes: one tile a chunk, no tile edge inside one")
     chunk = tpc * sc.SWEEP_TILE
@@ -425,42 +460,58 @@ def sweep_edges(ct, text: torch.Tensor, mode: str) -> tuple:
 
 def fused_vs_plain(ct, text: torch.Tensor, ns, modes=("l", "li", "count"),
                    seeds=("solo", "neutral"), block: int = K,
-                   edges: bool = False) -> dict:
-    """Max |schain_fused - schain_fused_plain| (L, I, count and G) over the
-    n values (with `edges`, also each mode's `sweep_edges`), seeds, modes,
-    the FF skip on/off and the kernel instances that take these tables, on
-    the same CUDA text; and the tiles each instance skipped with the skip
-    on."""
+                   edges: bool = False, emit_f: bool = False,
+                   first_starts=(None,)) -> dict:
+    """Max |schain_fused - schain_fused_plain| (L, I, count and G; with
+    emit_f, F on boundaries 0..n, and F past n apart as `f_past_n_err`)
+    over the n values (with `edges`, also each mode's `sweep_edges`),
+    seeds, boundary-0 start states, modes, the FF skip on/off and the
+    kernel instances that take these tables, on the same CUDA text; and
+    the tiles each instance skipped with the skip on."""
     from rejit_tpu_torch.kernels import schain_cuda as sc
 
-    err, calls = 0, 0
+    err = past = calls = 0
     insts = instances(ct.n_states)
     skipped = dict.fromkeys(insts, 0)
     tiles = dict.fromkeys(insts, 0)
-    ns_of = {m: tuple(ns) + (sweep_edges(ct, text, m) if edges else ())
-             for m in modes}
+    ns_of = {m: tuple(ns) + (sweep_edges(ct, text, m, emit_f) if edges
+                             else ()) for m in modes}
     for mode in modes:
         for n in ns_of[mode]:
             for name in seeds:
                 seed = (sc.solo_seed(ct, n) if name == "solo"
                         else sc.neutral_seed(ct.n_states, text.device))
-                want = sc.schain_fused_plain(ct, text, n, seed, block=block,
-                                             mode=mode)
-                for inst in insts:
-                    run = fused_call(sc, ct, inst)
-                    for use_ff in (True, False):
-                        stats = {}
-                        got = run(ct, text, n, seed, block=block, mode=mode,
-                                  use_ff=use_ff, stats=stats)
-                        check(stats["instance"] == inst, "instance taken")
-                        err = max(err, max_abs_err(got, want))
-                        calls += 1
-                        if use_ff:
-                            skipped[inst] += int(stats["skipped_tiles"])
-                            tiles[inst] += stats["tiles"]
+                for fs in first_starts:
+                    kw = dict(block=block, mode=mode, first_start=fs)
+                    if emit_f:
+                        kw["emit_f"] = True
+                    want = sc.schain_fused_plain(ct, text, n, seed, **kw)
+                    for inst in insts:
+                        run = fused_call(sc, ct, inst)
+                        for use_ff in (True, False):
+                            stats = {}
+                            got = run(ct, text, n, seed, use_ff=use_ff,
+                                      stats=stats, **kw)
+                            check(stats["instance"] == inst,
+                                  "instance taken")
+                            if emit_f:
+                                past = max(past, max_abs_err(
+                                    got[3][n + 1:], want[3][n + 1:]))
+                                got = got[:3] + (got[3][:n + 1],)
+                                want_n = want[:3] + (want[3][:n + 1],)
+                            else:
+                                want_n = want
+                            err = max(err, max_abs_err(got, want_n))
+                            calls += 1
+                            if use_ff:
+                                skipped[inst] += int(stats["skipped_tiles"])
+                                tiles[inst] += stats["tiles"]
     torch.cuda.synchronize()
-    return {"max_abs_err": err, "calls": calls, "instances": list(insts),
-            "ns": ns_of, "tiles": tiles, "skipped_tiles": skipped}
+    out = {"max_abs_err": err, "calls": calls, "instances": list(insts),
+           "ns": ns_of, "tiles": tiles, "skipped_tiles": skipped}
+    if emit_f:
+        out["f_past_n_err"] = past
+    return out
 
 
 def spans_of(out) -> list:
@@ -931,6 +982,276 @@ def time_config1(rt, text: bytes, label: str, reps: int) -> dict:
     return res
 
 
+def planted_words_text(words, size: int, chunk: int) -> bytes:
+    """words_text(size) with a word of the set planted across every
+    `chunk` edge, a space on either side of it."""
+    buf = bytearray(words_text(size))
+    rng = np.random.default_rng(17)
+    for e in range(chunk, size, chunk):
+        w = words[int(rng.integers(len(words)))]
+        s = e - len(w) // 2
+        buf[s - 1:s + len(w) + 1] = b" " + w + b" "
+    return bytes(buf)
+
+
+def pieces_after_space(text: bytes, most: int) -> list:
+    """[lo, hi) pieces of `text` of at most `most` bytes, each cut just
+    after a space."""
+    out, lo, n = [], 0, len(text)
+    while lo < n:
+        hi = min(lo + most, n)
+        if hi < n:
+            hi = text.rindex(b" ", lo, hi) + 1
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+class Stop(Exception):
+    pass
+
+
+def killed_and_resumed(p, text: bytes, state_dir: str, after: int = 5):
+    """match_all_stream of `text` in STREAM_CHUNK chunks, killed by its
+    progress callback after `after` chunks, then resumed from `state_dir`:
+    (result, chunks done before the kill, chunks of the resume)."""
+    done, resumed = [], []
+
+    def bomb(i, nc):
+        done.append(i)
+        if len(done) == after:
+            raise Stop()
+
+    try:
+        p.match_all_stream(text, chunk_bytes=STREAM_CHUNK,
+                           state_dir=state_dir, progress=bomb)
+        check(False, "the stream was not killed")
+    except Stop:
+        pass
+    out = p.match_all_stream(text, chunk_bytes=STREAM_CHUNK,
+                             state_dir=state_dir,
+                             progress=lambda i, nc: resumed.append(i))
+    check(resumed == list(range(done[-1] - 1, -1, -1))
+          and not set(resumed) & set(done),
+          f"resume: done {done}, resumed {resumed[:3]}...")
+    return out, done, resumed
+
+
+def same_arrays(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def emit_f_at_stream_shapes(p, text: bytes) -> dict:
+    """schain_fused with emit_f against its plain version at the shapes the
+    stream path gives it on this text, each with a neutral seed and the
+    first_start the stream takes at its base: an interior chunk (P = n =
+    STREAM_CHUNK at byte STREAM_CHUNK), the last chunk (P = STREAM_CHUNK +
+    K, so boundary n is inside), and the ladder's windows at the default
+    first window W0 (W0 at byte 0, W0 at byte W0 after a window with no
+    match, 2 W0 at byte 0 after an inconclusive one). L, I, G and F on
+    0..n in both modes, both instances, the skip on and off; F past n
+    apart."""
+    from rejit_tpu_torch.engine import stream
+
+    src = np.frombuffer(text, np.uint8)
+    K_, W0 = p.fused_block, p.config.first_window
+    shapes = (("interior_chunk", STREAM_CHUNK, STREAM_CHUNK, STREAM_CHUNK),
+              ("last_chunk", len(text) - STREAM_CHUNK, STREAM_CHUNK,
+               STREAM_CHUNK + K_),
+              ("window_0", 0, W0, W0), ("window_at_W0", W0, W0, W0),
+              ("window_doubled", 0, 2 * W0, 2 * W0))
+    err, cases = 0, {}
+    for name, a, n, P in shapes:
+        buf = np.zeros(P, np.uint8)
+        buf[:n] = src[a:a + n]
+        fs = stream._first_start_at(p.tables, src, a)
+        e = fused_vs_plain(p.ct, torch.from_numpy(buf).to(DEV), (n,),
+                           modes=("l", "li"), seeds=("neutral",), block=K_,
+                           emit_f=True, first_starts=(fs,))
+        err = max(err, e["max_abs_err"], e["f_past_n_err"])
+        cases[name] = {"base": a, "n": n, "P": P, "first_start": fs,
+                       "calls": e["calls"], "max_abs_err": e["max_abs_err"],
+                       "f_past_n_err": e["f_past_n_err"]}
+    return {"max_abs_err": err, "cases": cases}
+
+
+def time_emit_f(ct, text: bytes, reps: int, plain_reps: int) -> dict:
+    """schain_fused in L mode and with emit_f on one text (a neutral seed,
+    the stream's call), by CUDA events, the emit_f plain version, and the
+    byte bound of emit_f: 1 B of text in, 4 B of L and 1 B of F out a
+    byte, the table once."""
+    from rejit_tpu_torch.kernels import schain_cuda as sc
+
+    t = padded(text, DEV)
+    n, P, Q = len(text), t.shape[0], ct.n_states
+    seed = sc.neutral_seed(Q, t.device)
+    out = {}
+    for name, kw in (("l", {}), ("emit_f", {"emit_f": True}),
+                     ("l_again", {})):
+        out[name + "_ms"] = time_ms(
+            lambda: sc.schain_fused(ct, t, n, seed, block=K, mode="l", **kw),
+            reps)
+    if plain_reps:
+        out["emit_f_plain_ms"] = time_ms(
+            lambda: sc.schain_fused_plain(ct, t, n, seed, block=K, mode="l",
+                                          emit_f=True), plain_reps, warmup=1)
+    b = bound(P + Q * ct.n_classes * 4 + 5 * P, ALU_OPS_PER_STEP * n * Q)
+    out.update({"emit_f_" + k: v for k, v in b.items()})
+    return out
+
+
+def stream_phase(rt, p, wp, words, quick: bool, reset, launches,
+                 only) -> dict:
+    """The stream path on the card: (b) config 3 on the fused route and
+    (c) the 250-word set on the split route, 256 MiB each in 8 MiB chunks,
+    killed and resumed; (d) the early exit; (e) no retries; (f) times.
+    Returns the kernels-line numbers of schain_fused_emit_f."""
+    import shutil
+    import tempfile
+
+    from rejit_tpu_torch.engine import stream
+    from rejit_tpu_torch.kernels import schain_cuda as sc
+    from rejit_tpu_torch.utils.corpus import make_corpus
+
+    row = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    try:
+        # (b) Config 3 on the fused route.
+        text = make_corpus(STREAM_SIZE, seed=2, needle=b"matching",
+                           density=0.01)
+        nc = -(-len(text) // STREAM_CHUNK)
+        # (a) emit_f at the stream's own chunk and window shapes.
+        e = emit_f_at_stream_shapes(p, text)
+        emit({"phase": "fused_emit_f_vs_plain", "shapes": "stream path",
+              "pattern": MAIN_PATTERN.decode(), "Q": p.ct.n_states, **e})
+        row["max_abs_err"] = e["max_abs_err"]
+        reset()
+        out, done, resumed = killed_and_resumed(p, text,
+                                                os.path.join(tmp, "b"))
+        got = launches()
+        check(only(got, schain_fused=nc), f"config-3 stream: {got}")
+        row["launches"] = got["schain_fused"]
+        ref = p.match_all_arrays(text)
+        check(same_arrays(out, ref), "config-3 stream differs from "
+              "match_all_arrays")
+        emit({"phase": "stream_fused", "pattern": MAIN_PATTERN.decode(),
+              "n": len(text), "chunk_bytes": STREAM_CHUNK, "chunks": nc,
+              "killed_after": done, "resumed_chunks": len(resumed),
+              "matches": len(out[0]), "launches": got,
+              "equal_to_match_all_arrays": True})
+        # (d) The early exit, on the same text.
+        reset()
+        m = p.match_first(text)
+        got = launches()
+        check(m == (int(ref[0][0]), int(ref[1][0])), f"match_first {m}")
+        check(1 <= got["schain_fused"] <= 4
+              and only(got, schain_fused=got["schain_fused"]),
+              f"match_first launches: {got}")
+        first_launches = got["schain_fused"]
+        corpus = rt.stage(text, DEV)
+        corpus.padded(p.fused_block)
+        uploads = corpus.uploads
+        check(p.match_first(corpus) == m and p.match_anywhere(corpus)
+              and p.match_anywhere(text), "staged early exit")
+        check(corpus.uploads == uploads, "the staged ladder uploaded")
+        nq = rt.Pattern(rb"qu[0-9]+z", rt.Config(engine="dfa"), device=DEV)
+        check(nq.fused and len(nq.match_all_arrays(text)[0]) == 0,
+              "qu[0-9]+z matches the config-3 text")
+        check(nq.match_first(text) is None and not nq.match_anywhere(text)
+              and nq.match_first(corpus) is None
+              and not nq.match_anywhere(corpus), "no-match ladder")
+        for pat, small in ((p, b"singing"), (p, text[:1 << 20]),
+                           (wp, words[0]), (wp, text[:1 << 16])):
+            check(pat.match_full_stream(small, chunk_bytes=1 << 16)
+                  == pat.match_full(small), "match_full_stream")
+        emit({"phase": "stream_early_exit", "n": len(text),
+              "match_first": m, "launches": first_launches,
+              "staged_uploads": corpus.uploads,
+              "match_full_stream_equal": True})
+        del corpus
+        if not quick:
+            tf = time_emit_f(p.ct, text[:STREAM_CHUNK], reps=20,
+                             plain_reps=2)
+            t256 = time_emit_f(p.ct, text, reps=5, plain_reps=0)
+            whole = rt.Pattern(MAIN_PATTERN, rt.Config(first_window=1 << 62),
+                               device=DEV)
+            row.update(ms=tf["emit_f_ms"], plain_ms=tf["emit_f_plain_ms"],
+                       bound_ms=tf["emit_f_bound_ms"],
+                       bound_by=tf["emit_f_bound_by"])
+            dirs = iter(range(1 << 20))
+            walls = {
+                "stream": wall_s(lambda: p.match_all_stream(
+                    text, chunk_bytes=STREAM_CHUNK), 3),
+                "stream_state_dir": wall_s(lambda: p.match_all_stream(
+                    text, chunk_bytes=STREAM_CHUNK, state_dir=os.path.join(
+                        tmp, f"bw{next(dirs)}")), 3),
+                "match_all_arrays": wall_s(lambda: p.match_all_arrays(text),
+                                           3),
+                "match_first": wall_s(lambda: p.match_first(text), 5),
+                "match_first_full_scan": wall_s(
+                    lambda: whole.match_first(text), 3),
+            }
+            emit({"phase": "times_stream_fused", "n": len(text),
+                  "emit_f_8MiB": tf, "emit_f_256MiB": t256, "walls": walls,
+                  "gb_per_s": {k: len(text) / v["median_s"] / 1e9
+                               for k, v in walls.items()}})
+        del text, out, ref
+
+        # (c) The 250-word set (Q = 871) on the split route.
+        check(not wp.fused, "250-word set on the fused route")
+        text = planted_words_text(words, STREAM_SIZE, STREAM_CHUNK)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset()
+        out, done, resumed = killed_and_resumed(wp, text,
+                                                os.path.join(tmp, "c"))
+        got = launches()
+        peak = torch.cuda.max_memory_allocated() - base
+        check(only(got, dfa_phase1=nc, dfa_phase3=nc),
+              f"250-word stream: {got}")
+        starts, ends = [], []
+        for lo, hi in pieces_after_space(text, STREAM_CHUNK):
+            s_, e_, _ = wp.match_all_arrays(text[lo:hi])
+            starts.append(s_ + lo)
+            ends.append(e_ + lo)
+        want = (np.concatenate(starts), np.concatenate(ends))
+        check(same_arrays(out[:2], want), "250-word stream differs from "
+              "the pieces' match_all_arrays")
+        spans = set(zip(out[0].tolist(), out[1].tolist()))
+        crossing = sum(any((e - d, e - d + len(w)) in spans
+                           for w in words for d in range(1, len(w)))
+                       for e in range(STREAM_CHUNK, len(text), STREAM_CHUNK))
+        check(crossing == nc - 1, f"{crossing} spans cross chunk edges")
+        emit({"phase": "stream_split", "patterns": "250-word alternation",
+              "Q": wp.ct.n_states, "n": len(text), "chunks": nc,
+              "killed_after": done, "resumed_chunks": len(resumed),
+              "matches": len(out[0]), "spans_across_chunk_edges": crossing,
+              "launches": got, "peak_device_bytes": peak,
+              "equal_to_pieces": True})
+        if not quick:
+            dirs = iter(range(1 << 20))
+            walls = {
+                "stream": wall_s(lambda: wp.match_all_stream(
+                    text, chunk_bytes=STREAM_CHUNK), 3, warm=False),
+                "stream_state_dir": wall_s(lambda: wp.match_all_stream(
+                    text, chunk_bytes=STREAM_CHUNK, state_dir=os.path.join(
+                        tmp, f"cw{next(dirs)}")), 3, warm=False),
+            }
+            emit({"phase": "times_stream_split", "n": len(text),
+                  "walls": walls,
+                  "gb_per_s": {k: len(text) / v["median_s"] / 1e9
+                               for k, v in walls.items()}})
+        del text, out
+        # (e) No chunk was retried.
+        check(stream.RETRIES == 0, f"stream retries: {stream.RETRIES}")
+        check(sc.MAX_P >= STREAM_CHUNK, "chunk above the kernel's limit")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device available", file=sys.stderr)
@@ -989,7 +1310,8 @@ def main() -> int:
     main_text = make_corpus(10_000_000, seed=2, needle=b"matching",
                             density=0.01)
     sp_text = sparse_text(10_000_000, seed=5)
-    errs = {"dfa_phase1": 0, "dfa_phase3": 0, "schain_fused": 0}
+    errs = {"dfa_phase1": 0, "dfa_phase3": 0, "schain_fused": 0,
+            "schain_fused_emit_f": 0}
     rng = np.random.default_rng(7)
     alphabet = np.frombuffer(b"abfo liner\n singing! foo bar baz line", np.uint8)
     words = word_set(rng, 250)
@@ -1016,6 +1338,8 @@ def main() -> int:
               f"{label}: unexpected table placement")
         check(e.pop("dead_stop_change") == 0,
               f"{label}: stopping at the dead state changed the outputs")
+        errs["dfa_phase3"] = max(errs["dfa_phase3"],
+                                 e.pop("dfa_phase3_first_start"))
         for k in e:
             errs[k] = max(errs[k], e[k])
     # The split route's shapes at 10 MB: the main text, and the 250-word
@@ -1029,6 +1353,7 @@ def main() -> int:
               "n": len(text), "max_abs_err": e})
         e.pop("smem_table")
         e.pop("dead_stop_change")
+        e["dfa_phase3"] = max(e["dfa_phase3"], e.pop("dfa_phase3_first_start"))
         for k in e:
             errs[k] = max(errs[k], e[k])
 
@@ -1046,6 +1371,22 @@ def main() -> int:
         (r"\b[a-z]{100,240}\b", rb"\b[a-z]{100,240}\b", long_words),
     ]
     sparse_small = sparse_text(200_000, seed=11)
+    emit_f_skips = {"sweep": 0, "tile": 0}
+
+    def emit_f_check(ct, t, ns, what: dict, **kw):
+        """schain_fused with emit_f (L and L+I modes) against its plain
+        version, from the begin context and another start state at byte
+        0."""
+        fs = (int(ct.plan.start_by_ctx[0]) + 1) % ct.n_states
+        e = fused_vs_plain(ct, t, ns, modes=("l", "li"), emit_f=True,
+                           first_starts=(None, fs), **kw)
+        emit({"phase": "fused_emit_f_vs_plain", **what, "Q": ct.n_states,
+              "first_start": fs, **e})
+        errs["schain_fused_emit_f"] = max(errs["schain_fused_emit_f"],
+                                          e["max_abs_err"], e["f_past_n_err"])
+        for inst, v in e["skipped_tiles"].items():
+            emit_f_skips[inst] += v
+
     skipped_total = {"sweep": 0, "tile": 0}
     fused_calls = {"sweep": 0, "tile": 0}
     for j, (label, pats, chars) in enumerate(fcases):
@@ -1060,6 +1401,8 @@ def main() -> int:
             emit({"phase": "fused_vs_plain", "patterns": label, "text": kind,
                   "P": P, "Q": ct.n_states, "skip_plan": ct.plan.skip, **e})
             errs["schain_fused"] = max(errs["schain_fused"], e["max_abs_err"])
+            emit_f_check(ct, t, (P, P - 3, 3 * NB * K, 1, 0),
+                         dict(patterns=label, text=kind, P=P))
             for inst in e["instances"]:
                 skipped_total[inst] += e["skipped_tiles"][inst]
                 fused_calls[inst] += 1
@@ -1073,6 +1416,9 @@ def main() -> int:
             emit({"phase": "fused_vs_plain", "patterns": str(pats),
                   "text": "mixed", "block": kb, "P": P, **e})
             errs["schain_fused"] = max(errs["schain_fused"], e["max_abs_err"])
+            emit_f_check(ct, t, (P, P - 3, 1),
+                         dict(patterns=str(pats), text="mixed", P=P),
+                         block=kb)
     # The 10 MB texts, where a sweep chunk is several tiles: the main
     # pattern (W = 8) and a 17-state suffix set (W = 32), at the sweep
     # instance's tile, chunk and segment edges of each mode.
@@ -1085,6 +1431,9 @@ def main() -> int:
             emit({"phase": "fused_vs_plain", "patterns": str(pats),
                   "text": kind, "P": P, "Q": ct.n_states, **e})
             errs["schain_fused"] = max(errs["schain_fused"], e["max_abs_err"])
+            emit_f_check(ct, t, (P, P - 3),
+                         dict(patterns=str(pats), text=kind, P=P),
+                         edges=True)
             if kind == "sparse" and pats == MAIN_PATTERN:
                 sparse_skips = e
     emit({"phase": "fused_instances", "cases": fused_calls,
@@ -1116,7 +1465,8 @@ def main() -> int:
     check(all(v > 0 for v in fused_calls.values()),
           f"a schain_fused instance was never held: {fused_calls}")
     check(all(v > 0 for v in skipped_total.values())
-          and all(v > 0 for v in sparse_skips["skipped_tiles"].values()),
+          and all(v > 0 for v in sparse_skips["skipped_tiles"].values())
+          and all(v > 0 for v in emit_f_skips.values()),
           "the FF tile skip was never taken")
 
     # 3. The main path at the published config-3 size: the fused route.
@@ -1328,7 +1678,17 @@ def main() -> int:
         B3_PATTERNS["classlit"][0], main_text), "pallas='off' classlit")
     check(only(launches()), "pallas='off' launched a kernel")
 
-    # 8. Times at 10 MB and 256 MiB.
+    # 8. The stream path: 256 MiB in 8 MiB chunks on both routes, killed
+    # and resumed, and the early exit.
+    del words10
+    emit_f_row = stream_phase(rt, p, wp, words, quick, reset, launches,
+                              only)
+    errs["schain_fused_emit_f"] = max(errs["schain_fused_emit_f"],
+                                      emit_f_row.pop("max_abs_err"))
+    check(errs["schain_fused_emit_f"] == 0, "schain_fused emit_f differs "
+          "from its plain version at the stream path's shapes")
+
+    # 9. Times at 10 MB and 256 MiB.
     times = {}
     if not quick:
         t10, _ = time_size(rt, main_text, "10MB", reps=20, wall_reps=10)
@@ -1338,7 +1698,6 @@ def main() -> int:
         emit({"phase": "times_literal_engines", **tl10})
         tc10 = time_config1(rt, c1_text, "10MiB", reps=10)
         emit({"phase": "times_config1", **tc10})
-        del words10
         for label, res in time_split_sets(rt, words, reps=10):
             emit({"phase": "times_split", "set": label, "label": "10MB",
                   **res})
@@ -1374,7 +1733,10 @@ def main() -> int:
         **split_launches, "schain_fused": main_launches["schain_fused"],
         "literal_spans": kw_launches["literal_spans"],
         "scan1d": sum(b3.values()),
+        "schain_fused_emit_f": emit_f_row.pop("launches"),
     }
+    for k, v in emit_f_row.items():
+        times["schain_fused_emit_f_" + k] = v
     for name in SOURCES:
         row = {
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -44,6 +44,7 @@ raise rather than carry on quietly on the CPU.
 from __future__ import annotations
 
 import functools
+import os
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -85,6 +86,13 @@ def text_to_u8(text: TextLike) -> np.ndarray:
             f"{arr.dtype} array of rank {arr.ndim}"
         )
     return arr
+
+
+def _not_ported(err: StateBlowupError) -> StateBlowupError:
+    return StateBlowupError(
+        f"{err}; the position-NFA and oracle fallbacks for DFA blowups are "
+        "not ported to rejit_tpu_torch yet"
+    )
 
 
 def resolve_device(device: DeviceLike) -> torch.device:
@@ -290,18 +298,33 @@ class Pattern:
             self._word_runs = classrun.bitmap_runs(ir.WORD)
         if self.engine == "dfa":
             try:
-                self.tables = compile_patterns(
-                    self.irs,
-                    max_nfa_states=config.max_nfa_states,
-                    max_dfa_states=config.max_dfa_states,
-                )
+                self.tables = self._compile_tables()
             except StateBlowupError as err:
-                raise StateBlowupError(
-                    f"{err}; the position-NFA and oracle fallbacks for DFA "
-                    "blowups are not ported to rejit_tpu_torch yet"
-                ) from err
+                self.tables = self._blowup_fallback(err)
             self.ct = pipeline.device_tables(self.tables, device=self.device)
             self.fused = self._use_schain_fused()
+
+    def _compile_tables(self, scale: int = 1):
+        cfg = self.config
+        return compile_patterns(
+            self.irs,
+            max_nfa_states=cfg.max_nfa_states * scale,
+            max_dfa_states=cfg.max_dfa_states * scale,
+        )
+
+    def _blowup_fallback(self, err: StateBlowupError):
+        """The first step of the JAX package's fallback chain: under
+        automatic engine choice (and `oracle_fallback` not 'off'), retry
+        subset construction once at 4x the state budgets. Forced engines
+        keep the hard error; a second blowup raises, since the position-NFA
+        and oracle fallbacks that follow are not ported yet."""
+        cfg = self.config
+        if cfg.engine is not None or cfg.oracle_fallback == "off":
+            raise err
+        try:
+            return self._compile_tables(scale=4)
+        except StateBlowupError as err4:
+            raise _not_ported(err4) from err
 
     def _use_schain_fused(self) -> bool:
         """The fused route (kernels/schain_cuda.py) or the split pipeline."""
@@ -512,6 +535,14 @@ class Pattern:
 
     def match_anywhere(self, text: TextLike) -> bool:
         t, corpus = _unwrap(text)
+        if self.engine == "dfa" and len(t) > self.config.first_window:
+            # Early exit: the doubling-window ladder (engine/stream.py).
+            with Timer() as t_all:
+                got = self.match_anywhere_stream(
+                    t, chunk_bytes=self.config.first_window, corpus=corpus)
+            self._record("match_anywhere", len(t), int(got), 0.0,
+                         t_all.elapsed)
+            return got
         if self._bitmask_ok():
             with Timer() as t_all:
                 with Timer() as t_dev:
@@ -530,6 +561,16 @@ class Pattern:
 
     def match_first(self, text: TextLike) -> Optional[Span]:
         t, corpus = _unwrap(text)
+        if self.engine == "dfa" and len(t) > self.config.first_window:
+            # Early exit: work follows the distance to the first match
+            # (doubling windows, engine/stream.py), not the text length. A
+            # DeviceCorpus makes the fused ladder slice its device text.
+            with Timer() as t_all:
+                m = self.match_first_stream(
+                    t, chunk_bytes=self.config.first_window, corpus=corpus)
+            self._record("match_first", len(t), int(m is not None), 0.0,
+                         t_all.elapsed)
+            return m
         if self._bitmask_ok():
             # One device reduction over the start mask; the end decodes
             # from the text at the start.
@@ -720,6 +761,141 @@ class Pattern:
         self._record("match_all_count_each", len(t), int(counts.sum()),
                      t_dev, t_all.elapsed, n_cand=n_cand, t_sel=t_sel)
         return counts
+
+    # -- Streaming API (corpora larger than device memory) ------------------
+
+    def _dfa_tables(self):
+        """The DFA tables, compiled on demand (the literal and elementwise
+        engines compile none, but streaming always runs the DFA path), and
+        placed on the device (`self.ct`) for streaming."""
+        if self.tables is None:
+            try:
+                self.tables = self._compile_tables()
+            except StateBlowupError as err:
+                raise _not_ported(err) from err
+        if self.ct is None:
+            self.ct = pipeline.device_tables(self.tables, device=self.device)
+        return self.tables
+
+    @staticmethod
+    def _stream_source(source):
+        if isinstance(source, (str, os.PathLike)):
+            # str is a file path here (a corpus too big to pass as a Python
+            # string); bytes and arrays are the data.
+            return np.memmap(source, dtype=np.uint8, mode="r")
+        return text_to_u8(source)
+
+    def _stream_kw(self, chunk_bytes: int) -> dict:
+        """Keywords of the split chunk engine (engine/stream.py)."""
+        self._dfa_tables()
+        return dict(ct=self.ct, chunk_bytes=chunk_bytes,
+                    block=self.config.block_size, engine="split")
+
+    def _stream_first_kw(self, chunk_bytes: int) -> dict:
+        """Keywords of the chunk and window engines: the fused kernel when
+        the tables take the fused route and the chunk is a whole number of
+        its blocks, else the split kernels."""
+        kw = self._stream_kw(chunk_bytes)
+        if (self._use_schain_fused() and chunk_bytes % self.fused_block == 0
+                and chunk_bytes + self.fused_block <= schain_cuda.MAX_P):
+            kw.update(block=self.fused_block, engine="fused",
+                      use_ff=self.config.use_ff)
+        return kw
+
+    def _first_kw_with_corpus(self, chunk_bytes: int, corpus) -> dict:
+        """_stream_first_kw, plus the corpus's padded device text when the
+        fused window ladder can slice it (no window is uploaded)."""
+        kw = self._stream_first_kw(chunk_bytes)
+        if corpus is not None and kw["engine"] == "fused":
+            kw["staged_full"] = self._corpus(corpus).padded(kw["block"])
+        return kw
+
+    def match_all_stream(self, source, *, chunk_bytes: int = 8 << 20,
+                         state_dir: Optional[str] = None, progress=None):
+        """Exact chunked MatchAll over a corpus of any size.
+
+        `source` is a file path (memory-mapped) or a text; the corpus never
+        needs to fit in device memory. `state_dir` checkpoints each chunk
+        for a resume after an interruption; `progress(i, nc)` is called
+        after chunk i of nc (engine/stream.py). Returns (starts, ends,
+        pids) int64 arrays."""
+        from .engine import stream
+
+        data = self._stream_source(source)
+        with Timer() as t_all:
+            out = stream.stream_match_all(
+                self._dfa_tables(), data, state_dir=state_dir,
+                progress=progress, **self._stream_first_kw(chunk_bytes),
+            )
+        self._record("match_all_stream", len(data), len(out[0]), 0.0,
+                     t_all.elapsed)
+        return out
+
+    def match_all_count_stream(self, source, *, chunk_bytes: int = 8 << 20,
+                               state_dir: Optional[str] = None,
+                               progress=None) -> int:
+        """The number of match_all_stream's matches (same arguments)."""
+        from .engine import stream
+
+        data = self._stream_source(source)
+        with Timer() as t_all:
+            cnt = stream.stream_match_count(
+                self._dfa_tables(), data, state_dir=state_dir,
+                progress=progress, **self._stream_first_kw(chunk_bytes),
+            )
+        self._record("match_all_count_stream", len(data), cnt, 0.0,
+                     t_all.elapsed)
+        return cnt
+
+    def match_first_stream(
+        self, source, *, chunk_bytes: int = 8 << 20, corpus=None
+    ) -> Optional[Span]:
+        """MatchFirst over a corpus of any size with an early exit: work
+        follows the distance to the first match (doubling windows), not
+        the corpus size (engine/stream.py). With `corpus` (a DeviceCorpus
+        of the same text) the fused ladder slices its device text."""
+        from .engine import stream
+
+        data = self._stream_source(source)
+        with Timer() as t_all:
+            m = stream.stream_match_first(
+                self._dfa_tables(), data,
+                **self._first_kw_with_corpus(chunk_bytes, corpus),
+            )
+        self._record("match_first_stream", len(data), int(m is not None),
+                     0.0, t_all.elapsed)
+        return None if m is None else (m[0], m[1])
+
+    def match_anywhere_stream(
+        self, source, *, chunk_bytes: int = 8 << 20, corpus=None
+    ) -> bool:
+        from .engine import stream
+
+        data = self._stream_source(source)
+        with Timer() as t_all:
+            got = stream.stream_match_anywhere(
+                self._dfa_tables(), data,
+                **self._first_kw_with_corpus(chunk_bytes, corpus),
+            )
+        self._record("match_anywhere_stream", len(data), int(got), 0.0,
+                     t_all.elapsed)
+        return got
+
+    def match_full_stream(self, source, *,
+                          chunk_bytes: int = 8 << 20) -> bool:
+        """MatchFull over a corpus of any size, stopping as soon as the
+        boundary-0 thread dies (the split kernels, as in the JAX
+        package)."""
+        from .engine import stream
+
+        data = self._stream_source(source)
+        kw = self._stream_kw(chunk_bytes)
+        kw.pop("engine")
+        with Timer() as t_all:
+            got = stream.stream_match_full(self._dfa_tables(), data, **kw)
+        self._record("match_full_stream", len(data), int(got), 0.0,
+                     t_all.elapsed)
+        return got
 
 
 @functools.lru_cache(maxsize=256)

@@ -193,9 +193,10 @@ def phase1_summaries(ct: DeviceTables, text: torch.Tensor, n: int,
 
 
 def phase3_emit(ct: DeviceTables, suf: Summary, text: torch.Tensor, n: int,
-                block: int, posbase=None):
-    """Per-boundary (L, I), each (K*nb,) in boundary order b*K + k."""
-    return dfa_cuda.phase3(ct, suf, text, n, block, posbase)
+                block: int, posbase=None, first_start=None):
+    """Per-boundary (L, I), each (K*nb,) in boundary order b*K + k;
+    boundary 0 starts in `first_start` (default start_by_ctx[0])."""
+    return dfa_cuda.phase3(ct, suf, text, n, block, posbase, first_start)
 
 
 def start_eot(ct: DeviceTables, text: torch.Tensor) -> torch.Tensor:

@@ -393,7 +393,9 @@ __global__ void __launch_bounds__(kThreads) dfa_phase1_kernel(
 // Phase 3: one item per boundary (text block b, offset k), numbered b*K + k
 // (the order of L and I). Block b starts at byte posbase[b] (or b*K when
 // posbase is null); boundary s starts in the start state after byte s-1
-// (s = 0: the begin state start_by_ctx[0]). A warp's tile is p3_blocks(K)
+// (s = 0: `first_start`, the caller's start state for byte 0: the begin
+// state start_by_ctx[0] for a whole text, the state after the byte before
+// it for a stream chunk or window). A warp's tile is p3_blocks(K)
 // text blocks. Staging it, each lane reads 16 bytes, classifies them, takes
 // their boundaries' start states, and lists the boundaries with a step to
 // take (not at the dead state, below n) for the queue, in order (a warp
@@ -405,7 +407,7 @@ template <bool kSmemTab>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) dfa_phase3_kernel(
     const uint8_t* __restrict__ text, long long T,
     const int* __restrict__ class_of, const int* __restrict__ start_of_byte,
-    const int* __restrict__ start_by_ctx, const int* __restrict__ tab,
+    int first_start, const int* __restrict__ tab,
     const int* __restrict__ m_suf, const int* __restrict__ i_suf,
     const int* __restrict__ posbase, int* __restrict__ L_out,
     int* __restrict__ I_out, int Q, int C, int K, int nb, int n, int dead) {
@@ -431,7 +433,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) dfa_phase3_kernel(
   int* s_base = reinterpret_cast<int*>(
       reinterpret_cast<unsigned char*>(s_list) + round16((size_t)most * 2));
   const float invK = 1.0f / (float)K;
-  const int begin = __ldg(start_by_ctx);
+  const int begin = first_start;
   const bool contiguous = posbase == nullptr;
   const long long ntiles = (nb + TB - 1) / TB;
   const long long step = (long long)gridDim.x * kWarps;
@@ -708,13 +710,15 @@ int dfa_phase1(const uint8_t* text, const int* class_of, const int* tab,
 }
 
 // posbase may be null: block b then starts at byte b*K. T is the text's
-// length; bytes at or past it read as 0.
+// length; bytes at or past it read as 0. first_start is boundary 0's start
+// state (0 <= first_start < Q).
 int dfa_phase3(const uint8_t* text, long long T, const int* class_of,
-               const int* start_of_byte, const int* start_by_ctx,
+               const int* start_of_byte, int first_start,
                const int* tab, const int* m_suf, const int* i_suf,
                const int* posbase, int* L, int* I, int Q, int C, int K,
                int nb, int n, int dead, void* stream) {
-  if (Q <= 0 || Q >= (1 << 23) || C <= 0 || K <= 0 || K > 65535 || nb <= 0) {
+  if (Q <= 0 || Q >= (1 << 23) || C <= 0 || K <= 0 || K > 65535 || nb <= 0 ||
+      first_start < 0 || first_start >= Q) {
     return (int)cudaErrorInvalidValue;
   }
   const Plan pl = p3_plan(Q, C, K);
@@ -727,14 +731,14 @@ int dfa_phase3(const uint8_t* text, long long T, const int* class_of,
                   (ntiles + kWarps - 1) / kWarps, &grid);
     if (err != cudaSuccess) return (int)err;
     dfa_phase3_kernel<true><<<grid, kThreads, pl.smem, s>>>(
-        text, T, class_of, start_of_byte, start_by_ctx, tab, m_suf, i_suf,
+        text, T, class_of, start_of_byte, first_start, tab, m_suf, i_suf,
         posbase, L, I, Q, C, K, nb, n, dead);
   } else {
     err = prepare(dfa_phase3_kernel<false>, pl.smem,
                   (ntiles + kWarps - 1) / kWarps, &grid);
     if (err != cudaSuccess) return (int)err;
     dfa_phase3_kernel<false><<<grid, kThreads, pl.smem, s>>>(
-        text, T, class_of, start_of_byte, start_by_ctx, tab, m_suf, i_suf,
+        text, T, class_of, start_of_byte, first_start, tab, m_suf, i_suf,
         posbase, L, I, Q, C, K, nb, n, dead);
   }
   return (int)cudaGetLastError();

@@ -9,8 +9,14 @@
 // of boundaries with L >= 0. The caller's buffers hold all P + 1 boundaries,
 // boundary P from the seed (the EOT accepts for a standalone text). It also
 // gives G, the whole text's (f, m, i) state-map summary composed with the
-// caller's seed. rejit_tpu_torch/kernels/schain_cuda.py holds the wrapper
-// and the plain PyTorch version the kernel is held against.
+// caller's seed. With emit_f (the L modes; TPU: call_fused(emit_f=True),
+// which packed it above L) it writes F, one byte a boundary: the state in
+// which the thread started at the boundary leaves the text, composed with
+// the seed (with a neutral seed, the state at the end of the text; past n,
+// the seed's f at the boundary's start state). Boundary 0 starts in the
+// caller's start0, every other boundary in the start state after the byte
+// before it. rejit_tpu_torch/kernels/schain_cuda.py holds the wrapper and
+// the plain PyTorch version the kernel is held against.
 //
 // The algebra is the split pipeline's (dfa_phases.cu): a summary maps each
 // start state q to (f = end state, m = last accepting position, i = its
@@ -101,6 +107,7 @@ struct Params {
   const int* seg_x;      // (nseg, 3, Q) segment exclusive suffixes (pass 3 in)
   int* L;                // (P+1,)
   int* I;                // (P+1,) in kEmitLI
+  uint8_t* F;            // (P+1,) end states (emit_f), or null
   int* counts;           // [0] count, [1] tiles skipped by pass 3
   int Q, C, K, NB, P, n;
   int start0;            // start state at boundary 0 (the begin context)
@@ -110,11 +117,12 @@ struct Params {
 };
 
 // Shared-memory words of a tile block.
-size_t tile_smem_words(int mode, int Q, int C, int K, int NB) {
+size_t tile_smem_words(int mode, int Q, int C, int K, int NB, bool emit_f) {
   const size_t NBP = NB + 1, KP = (K & 1) ? K : K + 1, NBQ = (size_t)NB * Q;
   size_t w = (size_t)Q * C + 3 * 256 + K * NBP + 9 * NBQ + 3 * Q;
   if (mode != kSummary) w += K * NBP;                 // start states
   if (mode == kEmitL || mode == kEmitLI) w += 2 * NB * KP;  // L/I stage
+  if (emit_f && mode != kSummary) w += NB * KP;      // F stage
   return w;
 }
 
@@ -131,6 +139,7 @@ __global__ void schain_tile_kernel(Params p) {
   const int NBQ = NB * Q;
   constexpr bool kEmit = kMode != kSummary;
   constexpr bool kOut = kMode == kEmitL || kMode == kEmitLI;
+  const bool emit_f = kOut && p.F != nullptr;
 
   int* s_tab = smem;                      // Q*C
   int* s_cls_of = s_tab + Q * C;          // 256
@@ -148,6 +157,7 @@ __global__ void schain_tile_kernel(Params p) {
   int* ci = cm + Q;
   int* s_L = ci + Q;                      // NB*KP output stage (kOut)
   int* s_I = s_L + NB * KP;
+  int* s_F = s_I + NB * KP;               // NB*KP end states (emit_f)
 
   const int tid = threadIdx.x;
   const int seg = blockIdx.x;
@@ -187,6 +197,7 @@ __global__ void schain_tile_kernel(Params p) {
     } else {
       p.L[p.P] = m;
       if (kMode == kEmitLI) p.I[p.P] = n == p.P ? ci[st] : -1;
+      if (emit_f) p.F[p.P] = (uint8_t)cf[st];
     }
   }
 
@@ -197,12 +208,17 @@ __global__ void schain_tile_kernel(Params p) {
 
     if (base >= n) {
       // Pad tile: identity maps, the carry is unchanged. Only boundary n
-      // can hold a match here (an empty match at EOT, from the carry).
+      // can hold a match here (an empty match at EOT, from the carry); a
+      // boundary's end state is the carry's f at its start state.
       if (kEmit) {
         if (kOut) {
           for (int x = tid; x < nbytes; x += kThreads) {
-            p.L[base + x] = -1;
-            if (kMode == kEmitLI) p.I[base + x] = -1;
+            const int pos = base + x;
+            p.L[pos] = -1;
+            if (kMode == kEmitLI) p.I[pos] = -1;
+            if (emit_f)
+              p.F[pos] = (uint8_t)cf[pos == 0 ? p.start0
+                                              : s_start[p.text[pos - 1]]];
           }
         }
         if (base == n && tid == 0) {
@@ -255,9 +271,12 @@ __global__ void schain_tile_kernel(Params p) {
       }
       if (kEmit) {
         if (kOut) {
+          // Every boundary's thread is in the dead state after its first
+          // byte: its end state is the carry's f at dead.
           for (int x = tid; x < nbytes; x += kThreads) {
             p.L[base + x] = -1;
             if (kMode == kEmitLI) p.I[base + x] = -1;
+            if (emit_f) p.F[base + x] = (uint8_t)cf[p.dead];
           }
         }
         if (tid == 0) {
@@ -357,8 +376,8 @@ __global__ void schain_tile_kernel(Params p) {
         if (b >= nbt) continue;
         const int pb = base + b * K;
         int m = -1, i = -1;
+        int S = s_st[k * NBP + b];
         if (pb + k <= n) {
-          int S = s_st[k * NBP + b];
           const int jend = min(K, n - pb);
           for (int j = k; j < jend; ++j) {
             const int val = s_tab[S * C + s_cls[j * NBP + b]];
@@ -380,6 +399,7 @@ __global__ void schain_tile_kernel(Params p) {
         } else {
           s_L[b * KP + k] = m;
           if (kMode == kEmitLI) s_I[b * KP + k] = i;
+          if (emit_f) s_F[b * KP + k] = Xf[b * Q + S];
         }
       }
     }
@@ -400,6 +420,7 @@ __global__ void schain_tile_kernel(Params p) {
         const int so = (x / K) * KP + (x % K);
         p.L[base + x] = s_L[so];
         if (kMode == kEmitLI) p.I[base + x] = s_I[so];
+        if (emit_f) p.F[base + x] = (uint8_t)s_F[so];
       }
     }
   }
@@ -482,7 +503,9 @@ __global__ void __launch_bounds__(kCarryThreads) schain_carry_kernel(
 
 template <int kMode>
 cudaError_t launch_tiles(const Params& p, int nseg, cudaStream_t s) {
-  const size_t bytes = tile_smem_words(kMode, p.Q, p.C, p.K, p.NB) * sizeof(int);
+  const size_t bytes =
+      tile_smem_words(kMode, p.Q, p.C, p.K, p.NB, p.F != nullptr) *
+      sizeof(int);
   if (bytes > kSmemLimit) return cudaErrorInvalidValue;
   if (bytes > kSmemDefault) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -511,6 +534,7 @@ struct SweepParams {
   int* chunk_x;          // (nseg, 3, kSweepThreads) in-segment suffix per lane
   int* L;                // (P+1,)
   int* I;                // (P+1,) in kEmitLI
+  uint8_t* F;            // (P+1,) end states (emit_f), F + 1 16-byte aligned
   int* counts;           // [0] count, [1] tiles skipped by pass 3
   int Q, W, P, n;
   int start0;            // start state at boundary 0 (the begin context)
@@ -656,56 +680,66 @@ __device__ __forceinline__ uint32_t piece_byte(const uint4& v, int b) {
 
 // One right-to-left sweep of the 128-byte tile at tb, by all 32 lanes of
 // a warp together (shuffles of the whole warp, width W): V holds m (and
-// i) per lane; f is not needed here, since only the m and i of the later
-// vector are read. Boundaries (tb, te] are stored. kCheck: bytes at or
-// past min(te, n) are the identity (a group whose tile is empty has
-// te <= tb); else every byte of the tile lies below te and n.
+// i) per lane; f only with kF (emit_f), since otherwise only the m and i
+// of the later vector are read. With kF, f'(q) = f(next(q, byte)) takes
+// one more shuffle a byte, and each boundary's end state is V's f at its
+// start state, read as its L is. Boundaries (tb, te] are stored.
+// kCheck: bytes at or past min(te, n) are the identity (a group whose tile
+// is empty has te <= tb); else every byte of the tile lies below te and n.
 // With kLane, lane `emit` (an idle lane, q = Q < W) has the start state
 // after each byte as its next state and no accept, so its update shuffle
 // reads V at the boundary's start state: after byte j it holds L[j+1]
 // (and I[j+1]), with no shuffle of its own. Else each boundary takes one
 // more shuffle. The writing lane keeps a 16-byte piece's values in
 // registers and stores them as four 16-byte words (L + 1 is 16-byte
-// aligned). s_col: this lane's column of the byte table, as bytes (a
-// byte's row is 128 bytes on).
-template <int kMode, bool kLane, bool kCheck>
+// aligned), the piece's 16 end states as one (F + 1 is 16-byte aligned).
+// F needs no `live` mask: past min(te, n) V does not change, so the
+// shuffle reads the right vector there too. s_col: this lane's column of
+// the byte table, as bytes (a byte's row is 128 bytes on).
+template <int kMode, bool kF, bool kLane, bool kCheck>
 __device__ __forceinline__ void sweep_tile(const SweepParams& p,
                                            const char* s_col, int W, int q,
                                            int emit, int tb, int te, int& vm,
-                                           int& vi, int& cnt) {
+                                           int& vi, int& vf, int& cnt) {
   const int lim = min(te, p.n);
   const int writer = kLane ? emit : 0;
   for (int pos = tb + kSweepTile - 16; pos >= tb; pos -= 16) {
     const uint4 v = load16(p.text, pos, p.P);
     int aL[16], aI[16];
+    uint32_t aF[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
     for (int b = 15; b >= 0; --b) {
       const int j = pos + b;
       const bool live = !kCheck || j < lim;
       const uint32_t e = *reinterpret_cast<const uint32_t*>(
           s_col + piece_byte(v, b) * 128);
-      int eL = -1, eI = -1;
+      int eL = -1, eI = -1, eF = 0;
       if (!kLane) {
         eL = __shfl_sync(kFull, vm, e >> 24, W);
         if (kMode == kEmitLI) eI = __shfl_sync(kFull, vi, e >> 24, W);
+        if (kF) eF = __shfl_sync(kFull, vf, e >> 24, W);
       }
       // The low bits of e are the next state: the shuffle's source lane.
       const int nm = __shfl_sync(kFull, vm, e, W);
-      int ni = 0;
+      int ni = 0, nf = 0;
       if (kMode == kEmitLI) ni = __shfl_sync(kFull, vi, e, W);
+      if (kF) nf = __shfl_sync(kFull, vf, e, W);
       const int aj = (e & 0xff00u) ? j : -1;   // off the chain
       if (live) {
         const bool later = nm >= 0;
         if (kMode == kEmitLI)
           vi = later || q == emit ? ni : (int)((e >> 8) & 255) - 1;
         vm = later ? nm : aj;
+        if (kF) vf = nf;
       }
       if (kLane) {
         eL = vm;
         eI = vi;
+        eF = nf;
       }
       aL[b] = live ? eL : -1;
       aI[b] = live ? eI : -1;
+      if (kF) aF[b >> 2] |= (uint32_t)(eF & 255) << (8 * (b & 3));
     }
     const int nb = min(16, te - pos);    // boundaries pos+1 .. pos+nb
     if (q == writer && nb > 0) {
@@ -725,12 +759,16 @@ __device__ __forceinline__ void sweep_tile(const SweepParams& p,
             dI[k] = make_int4(aI[4 * k], aI[4 * k + 1], aI[4 * k + 2],
                               aI[4 * k + 3]);
         }
+        if (kF)
+          *reinterpret_cast<uint4*>(p.F + pos + 1) =
+              make_uint4(aF[0], aF[1], aF[2], aF[3]);
       } else {
 #pragma unroll
         for (int b = 0; b < 16; ++b) {
           if (b < nb) {
             p.L[pos + 1 + b] = aL[b];
             if (kMode == kEmitLI) p.I[pos + 1 + b] = aI[b];
+            if (kF) p.F[pos + 1 + b] = (uint8_t)(aF[b >> 2] >> (8 * (b & 3)));
           }
         }
       }
@@ -740,35 +778,36 @@ __device__ __forceinline__ void sweep_tile(const SweepParams& p,
 
 // One tile by the sweep variant its warp needs (every shuffle is one of
 // the whole warp, so the choice is made for the warp).
-template <int kMode>
+template <int kMode, bool kF>
 __device__ __forceinline__ void sweep_any(const SweepParams& p,
                                           const char* s_col, int W, int q,
                                           int emit, int tb, int te, int& vm,
-                                          int& vi, int& cnt) {
+                                          int& vi, int& vf, int& cnt) {
   const bool check =
       !__all_sync(kFull, te == tb + kSweepTile && te <= p.n);
   if (emit >= 0) {
     if (check)
-      sweep_tile<kMode, true, true>(p, s_col, W, q, emit, tb, te, vm, vi,
-                                    cnt);
+      sweep_tile<kMode, kF, true, true>(p, s_col, W, q, emit, tb, te, vm, vi,
+                                        vf, cnt);
     else
-      sweep_tile<kMode, true, false>(p, s_col, W, q, emit, tb, te, vm, vi,
-                                     cnt);
+      sweep_tile<kMode, kF, true, false>(p, s_col, W, q, emit, tb, te, vm,
+                                         vi, vf, cnt);
   } else {
     if (check)
-      sweep_tile<kMode, false, true>(p, s_col, W, q, emit, tb, te, vm, vi,
-                                     cnt);
+      sweep_tile<kMode, kF, false, true>(p, s_col, W, q, emit, tb, te, vm,
+                                         vi, vf, cnt);
     else
-      sweep_tile<kMode, false, false>(p, s_col, W, q, emit, tb, te, vm, vi,
-                                      cnt);
+      sweep_tile<kMode, kF, false, false>(p, s_col, W, q, emit, tb, te, vm,
+                                          vi, vf, cnt);
   }
 }
 
 // Pass 3: each group sweeps its chunk right to left from V = X_g o carry,
 // one state per lane, emitting boundaries (lo, hi] (and boundary 0 for
 // the first chunk). The groups of a warp walk their chunks' tiles in
-// lockstep, so every shuffle is one of the whole warp.
-template <int kMode>
+// lockstep, so every shuffle is one of the whole warp. kF: V carries f too
+// and each boundary's end state goes to F.
+template <int kMode, bool kF>
 __global__ void __launch_bounds__(kSweepThreads)
 sweep_emit_kernel(SweepParams p) {
   __shared__ uint32_t s_T[256 * 32];
@@ -789,13 +828,14 @@ sweep_emit_kernel(SweepParams p) {
   }
   __syncthreads();
 
-  // V, the suffix right of this chunk: X_g o carry (m and i; f unused).
+  // V, the suffix right of this chunk: X_g o carry (f only with kF).
   const int* cx = p.chunk_x + (size_t)blockIdx.x * 3 * kSweepThreads;
   const int xf = cx[tid], xm = cx[kSweepThreads + tid];
   const int xi = cx[2 * kSweepThreads + tid];
   const int mg = s_c[1][xf];
   int vm = mg >= 0 ? mg : xm;
   int vi = mg >= 0 ? s_c[2][xf] : xi;
+  int vf = kF ? s_c[0][xf] : 0;
 
   const int emit = p.Q < W ? p.Q : -1;    // the idle lane that emits
   int lo, hi;
@@ -822,11 +862,18 @@ sweep_emit_kernel(SweepParams p) {
       const int dm = __shfl_sync(kFull, vm, p.dead, W);
       const bool can = whole && !any && dm < 0;
       if (__all_sync(kFull, can || te <= tb)) {
-        // Boundary te from V; the inner boundaries are -1; V moves left
-        // past the tile: (dead, tb if byte tb accepts from q, its pid).
+        // Boundary te from V; the inner boundaries are -1, and in the dead
+        // state after their first byte (end state: V's f at dead); V moves
+        // left past the tile: (V's f at dead, tb if byte tb accepts from
+        // q, its pid).
         const int st = s_row[p.text[max(te - 1, 0)] * 32] >> 24;
         const int Lv = __shfl_sync(kFull, vm, st, W);
         const int Iv = __shfl_sync(kFull, vi, st, W);
+        int Fv = 0, Fd = 0;
+        if (kF) {
+          Fv = __shfl_sync(kFull, vf, st, W);
+          Fd = __shfl_sync(kFull, vf, p.dead, W);
+        }
         if (can) {
           if (kMode == kCount) {
             cnt += q == 0 && Lv >= 0;
@@ -834,33 +881,38 @@ sweep_emit_kernel(SweepParams p) {
             if (q == 0) {
               p.L[te] = Lv;
               if (kMode == kEmitLI) p.I[te] = Iv;
+              if (kF) p.F[te] = (uint8_t)Fv;
             }
             for (int b = tb + 1 + q; b < te; b += W) {
               p.L[b] = -1;
               if (kMode == kEmitLI) p.I[b] = -1;
+              if (kF) p.F[b] = (uint8_t)Fd;
             }
           }
           const int a1 = (s_row[p.text[tb] * 32] >> 8) & 255;
           vm = a1 ? tb : -1;
           vi = a1 - 1;
+          if (kF) vf = Fd;
           skipped += q == 0;
         }
         continue;
       }
     }
-    sweep_any<kMode>(p, reinterpret_cast<const char*>(s_row), W, q, emit,
-                     tb, te, vm, vi, cnt);
+    sweep_any<kMode, kF>(p, reinterpret_cast<const char*>(s_row), W, q,
+                         emit, tb, te, vm, vi, vf, cnt);
   }
   {
-    // Boundary 0, from the begin context's start state.
+    // Boundary 0, from the caller's start state (start0).
     const int Lv = __shfl_sync(kFull, vm, p.start0, W);
     const int Iv = __shfl_sync(kFull, vi, p.start0, W);
+    const int Fv = kF ? __shfl_sync(kFull, vf, p.start0, W) : 0;
     if (valid && lo == 0 && q == 0) {
       if (kMode == kCount) {
         cnt += Lv >= 0;
       } else {
         p.L[0] = Lv;
         if (kMode == kEmitLI) p.I[0] = Iv;
+        if (kF) p.F[0] = (uint8_t)Fv;
       }
     }
   }
@@ -959,17 +1011,17 @@ sweep_carry_kernel(const int* __restrict__ seg_sum,
   }
 }
 
-template <int kMode>
+template <int kMode, bool kF>
 cudaError_t launch_sweep_emit(const SweepParams& p, int nseg, cudaStream_t s) {
-  sweep_emit_kernel<kMode><<<nseg, kSweepThreads, 0, s>>>(p);
+  sweep_emit_kernel<kMode, kF><<<nseg, kSweepThreads, 0, s>>>(p);
   return cudaGetLastError();
 }
 
-template <int kMode>
+template <int kMode, bool kF>
 int emit_blocks_per_sm() {
   int b = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, sweep_emit_kernel<kMode>,
-                                                kSweepThreads, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &b, sweep_emit_kernel<kMode, kF>, kSweepThreads, 0);
   return b;
 }
 
@@ -978,33 +1030,38 @@ int emit_blocks_per_sm() {
 extern "C" {
 
 // Shared-memory bytes a tile block of this geometry needs in `mode`
-// (0 summary, 1 L, 2 L and I, 3 count); above 232448 the launch refuses.
-size_t schain_fused_smem_bytes(int mode, int Q, int C, int K, int NB) {
-  return tile_smem_words(mode, Q, C, K, NB) * sizeof(int);
+// (0 summary, 1 L, 2 L and I, 3 count; emit_f: F staged too); above
+// 232448 the launch refuses.
+size_t schain_fused_smem_bytes(int mode, int Q, int C, int K, int NB,
+                               int emit_f) {
+  return tile_smem_words(mode, Q, C, K, NB, emit_f != 0) * sizeof(int);
 }
 
 // One fused match by the tile instance: pass 1, the carry pass, and pass 3
 // in `mode` (1 L, 2 L and I, 3 count), on `stream`. seg_sum, seg_x and
-// seg_y hold nseg*3*Q ints, L and I P+1 ints, counts 2 ints zeroed by the
-// caller; G gets 3*Q ints. Returns cudaGetLastError() after the last
-// launch (0 = launched), or the first launch's error, or
-// cudaErrorInvalidValue for a geometry the kernels do not take.
+// seg_y hold nseg*3*Q ints, L and I P+1 ints, F (emit_f: each boundary's
+// end state; null for none, and in count mode) P+1 bytes, counts 2 ints
+// zeroed by the caller; G gets 3*Q ints. start0 is boundary 0's start
+// state. Returns cudaGetLastError() after the last launch (0 = launched),
+// or the first launch's error, or cudaErrorInvalidValue for a geometry the
+// kernels do not take.
 int schain_fused_tile(const uint8_t* text, const int* tab, const int* class_of,
                       const int* start_of, const int* flags, const int* seed,
                       int* seg_sum, int* seg_x, int* seg_y, int* L, int* I,
-                      int* G, int* counts, int Q, int C, int K, int NB, int P,
-                      int n, int start0, int dead, int skip, int tiles_per_seg,
-                      int mode, void* stream) {
+                      uint8_t* F, int* G, int* counts, int Q, int C, int K,
+                      int NB, int P, int n, int start0, int dead, int skip,
+                      int tiles_per_seg, int mode, void* stream) {
   if (Q <= 0 || Q > kThreads || C <= 0 || K <= 0 || NB <= 0 ||
       (NB & (NB - 1)) || P <= 0 || P % K || n < 0 || n > P ||
       tiles_per_seg <= 0 || mode < kEmitL || mode > kCount ||
-      (skip && (dead < 0 || dead >= Q)))
+      (skip && (dead < 0 || dead >= Q)) || start0 < 0 || start0 >= Q ||
+      (F && mode == kCount))
     return (int)cudaErrorInvalidValue;
   const int nb = P / K;
   const int ntiles = (nb + NB - 1) / NB;
   const int nseg = (ntiles + tiles_per_seg - 1) / tiles_per_seg;
-  Params p{text, tab, class_of, start_of, flags, seg_sum, seg_x, L, I, counts,
-           Q, C, K, NB, P, n, start0, skip ? dead : 0, skip, ntiles,
+  Params p{text, tab, class_of, start_of, flags, seg_sum, seg_x, L, I, F,
+           counts, Q, C, K, NB, P, n, start0, skip ? dead : 0, skip, ntiles,
            tiles_per_seg};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = launch_tiles<kSummary>(p, nseg, s);
@@ -1019,8 +1076,9 @@ int schain_fused_tile(const uint8_t* text, const int* tab, const int* class_of,
 }
 
 // CUDA blocks of the sweep instance that fit the current card at once in
-// `mode` (pass 1 and pass 3 together), or -1 on an error.
-int schain_sweep_max_blocks(int mode) {
+// `mode` (pass 1 and pass 3 together; emit_f: pass 3 writes F), or -1 on
+// an error.
+int schain_sweep_max_blocks(int mode, int emit_f) {
   int dev = 0, sms = 0, b1 = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
@@ -1028,9 +1086,12 @@ int schain_sweep_max_blocks(int mode) {
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &b1, sweep_summary_kernel, kSweepThreads, 0) != cudaSuccess)
     return -1;
-  const int b3 = mode == kEmitL    ? emit_blocks_per_sm<kEmitL>()
-                 : mode == kEmitLI ? emit_blocks_per_sm<kEmitLI>()
-                                   : emit_blocks_per_sm<kCount>();
+  const int b3 =
+      mode == kEmitL    ? (emit_f ? emit_blocks_per_sm<kEmitL, true>()
+                                  : emit_blocks_per_sm<kEmitL, false>())
+      : mode == kEmitLI ? (emit_f ? emit_blocks_per_sm<kEmitLI, true>()
+                                  : emit_blocks_per_sm<kEmitLI, false>())
+                        : emit_blocks_per_sm<kCount, false>();
   return sms * (b1 < b3 ? b1 : b3);
 }
 
@@ -1040,28 +1101,30 @@ int schain_sweep_max_blocks(int mode) {
 // tiles go tiles_per_chunk to a chunk, 256 / W chunks to a segment: nseg
 // segments, whose count the caller passes as a check. seg_sum and seg_x
 // hold nseg*3*Q ints, chunk_x nseg*3*256, L and I P+1 (with L + 1 and
-// I + 1 16-byte aligned), counts 2 zeroed by the caller; G gets 3*Q ints.
+// I + 1 16-byte aligned), F (emit_f, else null) P+1 bytes with F + 1
+// 16-byte aligned, counts 2 zeroed by the caller; G gets 3*Q ints.
 // Returns as schain_fused_tile.
 int schain_fused_sweep(const uint8_t* text, const uint32_t* T,
                        const int* seed, int* seg_sum, int* seg_x,
-                       int* chunk_x, int* L, int* I, int* G, int* counts,
-                       int Q, int W, int P, int n, int start0, int dead,
-                       int skip, int tiles_per_chunk, int nseg, int mode,
-                       void* stream) {
+                       int* chunk_x, int* L, int* I, uint8_t* F, int* G,
+                       int* counts, int Q, int W, int P, int n, int start0,
+                       int dead, int skip, int tiles_per_chunk, int nseg,
+                       int mode, void* stream) {
   if (Q <= 0 || Q > kSweepMaxQ || W < Q || W > kSweepMaxQ || (W & (W - 1)) ||
       P <= 0 || n < 0 || n > P || tiles_per_chunk <= 0 || mode < kEmitL ||
       mode > kCount || dead >= Q || (skip && dead < 0) ||
       start0 < 0 || start0 >= Q || ((uintptr_t)text & 15) ||
       (mode != kCount && ((uintptr_t)(L + 1) & 15)) ||
-      (mode == kEmitLI && ((uintptr_t)(I + 1) & 15)))
+      (mode == kEmitLI && ((uintptr_t)(I + 1) & 15)) ||
+      (F && (mode == kCount || ((uintptr_t)(F + 1) & 15))))
     return (int)cudaErrorInvalidValue;
   const int ntiles = (P + kSweepTile - 1) / kSweepTile;
   const int nchunks = (ntiles + tiles_per_chunk - 1) / tiles_per_chunk;
   const int groups = kSweepThreads / W;
   if (nseg != (nchunks + groups - 1) / groups || nseg > kMaxSegments)
     return (int)cudaErrorInvalidValue;
-  SweepParams p{text, T, seg_sum, seg_x, chunk_x, L, I, counts, Q, W, P, n,
-                start0, dead, skip, ntiles, tiles_per_chunk};
+  SweepParams p{text, T, seg_sum, seg_x, chunk_x, L, I, F, counts, Q, W, P,
+                n, start0, dead, skip, ntiles, tiles_per_chunk};
   cudaStream_t s = (cudaStream_t)stream;
   sweep_summary_kernel<<<nseg, kSweepThreads, 0, s>>>(p);
   cudaError_t err = cudaGetLastError();
@@ -1069,9 +1132,13 @@ int schain_fused_sweep(const uint8_t* text, const uint32_t* T,
   sweep_carry_kernel<<<1, 1024, 0, s>>>(seg_sum, seed, seg_x, G, Q, nseg);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (mode == kEmitL) return (int)launch_sweep_emit<kEmitL>(p, nseg, s);
-  if (mode == kEmitLI) return (int)launch_sweep_emit<kEmitLI>(p, nseg, s);
-  return (int)launch_sweep_emit<kCount>(p, nseg, s);
+  if (mode == kEmitL)
+    return (int)(F ? launch_sweep_emit<kEmitL, true>(p, nseg, s)
+                   : launch_sweep_emit<kEmitL, false>(p, nseg, s));
+  if (mode == kEmitLI)
+    return (int)(F ? launch_sweep_emit<kEmitLI, true>(p, nseg, s)
+                   : launch_sweep_emit<kEmitLI, false>(p, nseg, s));
+  return (int)launch_sweep_emit<kCount, false>(p, nseg, s);
 }
 
 const char* schain_error_string(int err) {

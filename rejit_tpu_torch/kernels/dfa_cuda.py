@@ -14,7 +14,9 @@ Kernels (csrc/dfa_phases.cu, built by kernels/build.py):
 
 Both read the padded uint8 text and classify it themselves (`class_of`;
 phase 3 also takes each boundary's start state from the byte before it,
-`start_of_byte`, and `start_by_ctx[0]` at byte 0), where the TPU kernels
+`start_of_byte`, and `first_start` at byte 0: by default `start_by_ctx[0]`,
+the begin context; a stream chunk or window passes the state after the
+byte before it), where the TPU kernels
 took int32 class and start-state views. Both stop a thread at the tables'
 dead state (`dead`, absorbing and never accepting; -1 when there is none):
 in phase 1 f is then dead and m, i are final, in phase 3 the splice is
@@ -76,7 +78,7 @@ def _kernels() -> ctypes.CDLL:
         ]
         lib.dfa_phase1.restype = _I
         lib.dfa_phase3.argtypes = [
-            _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _P, _LL, _P, _P, _I, _P, _P, _P, _P, _P, _P,
             _I, _I, _I, _I, _I, _I, _P,
         ]
         lib.dfa_phase3.restype = _I
@@ -226,13 +228,26 @@ def phase1(ct, text: torch.Tensor, n: int, block: int) -> Summary:
 # ---------------------------------------------------------------------------
 
 
+def first_start_of(ct, first_start: Optional[int]) -> int:
+    """Boundary 0's start state: `first_start`, checked against the tables'
+    states, or the begin context's start state when it is None."""
+    if first_start is None:
+        return int(ct.plan.start_by_ctx[0])
+    fs = int(first_start)
+    if not 0 <= fs < ct.n_states:
+        raise ValueError(f"first_start {fs} not in [0, {ct.n_states})")
+    return fs
+
+
 def block_views(ct, text: torch.Tensor, block: int,
-                posbase: Optional[torch.Tensor] = None):
+                posbase: Optional[torch.Tensor] = None,
+                first_start: Optional[int] = None):
     """(cls_kb, startsb, pos_kb), each (K, nb) int32: row k holds, for each
     block, the class of its byte k (0 at or past the text's end), the start
-    state of boundary k (after the byte before it; start_by_ctx[0] at byte
-    0) and that boundary's position. Blocks start at `posbase` (default b*K
-    for the text's len/K blocks). These are the views the TPU kernels took."""
+    state of boundary k (after the byte before it; `first_start`, default
+    start_by_ctx[0], at byte 0) and that boundary's position. Blocks start
+    at `posbase` (default b*K for the text's len/K blocks). These are the
+    views the TPU kernels took."""
     K = block
     T = text.shape[0]
     dev = text.device
@@ -245,9 +260,9 @@ def block_views(ct, text: torch.Tensor, block: int,
     cls_kb = ct.class_of.index_select(0, ext[pos_kb.long()].view(-1))
     prev = ext[(pos_kb - 1).clamp(min=0).long()].view(-1)
     startsb = torch.where(
-        pos_kb == 0, ct.start_by_ctx[:1],
+        pos_kb == 0, first_start_of(ct, first_start),
         ct.start_of_byte.index_select(0, prev).view(K, nb),
-    )
+    ).to(torch.int32)
     return cls_kb.view(K, nb), startsb, pos_kb
 
 
@@ -258,6 +273,7 @@ def phase3_plain(
     n: int,
     block: int,
     posbase: Optional[torch.Tensor] = None,
+    first_start: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-boundary (L, I), each (nb*K,) in boundary order b*K + k, in
     torch ops (the port of rejit_tpu/engine/pipeline.py:phase3_emit,
@@ -266,7 +282,8 @@ def phase3_plain(
     dev = text.device
     C = ct.n_classes
     _, m_suf, i_suf = suf
-    cls_kb, startsb, pos_kb = block_views(ct, text, block, posbase)
+    cls_kb, startsb, pos_kb = block_views(ct, text, block, posbase,
+                                          first_start)
     nb = cls_kb.shape[1]
     rows = torch.arange(K, dtype=torch.int32, device=dev)[:, None]
     # Row k holds the thread starting at in-block offset k; at step j it
@@ -302,6 +319,7 @@ def phase3(
     n: int,
     block: int,
     posbase: Optional[torch.Tensor] = None,
+    first_start: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(L, I) each (nb*K,) int32: the dfa_phase3 kernel on CUDA tensors,
     phase3_plain on CPU tensors.
@@ -310,9 +328,11 @@ def phase3(
     deadness is already in m/i); text: uint8, the padded text; posbase:
     (nb,) int32 byte offset of each block, each in [0, len(text)] (default
     b*K for the text's len/K blocks; the fast-forward route passes the
-    bases of the gathered blocks). Bytes at or past the text's end read as
-    0."""
+    bases of the gathered blocks); first_start: boundary 0's start state
+    (default start_by_ctx[0]; a stream chunk passes the state after the
+    byte before it). Bytes at or past the text's end read as 0."""
     dev = _check_inputs(ct, text, block)
+    fs = first_start_of(ct, first_start)
     _, m_suf, i_suf = suf
     tensors = [m_suf, i_suf]
     if posbase is None:
@@ -326,7 +346,7 @@ def phase3(
     _check("i_suf", i_suf, (nb, Q))
     _device_of(text, *tensors)
     if dev.type == "cpu":
-        return phase3_plain(ct, suf, text, n, block, posbase)
+        return phase3_plain(ct, suf, text, n, block, posbase, fs)
     lib = _kernels()
     L = torch.empty(nb * block, dtype=torch.int32, device=dev)
     I = torch.empty_like(L)
@@ -335,8 +355,8 @@ def phase3(
     with torch.cuda.device(dev):
         err = lib.dfa_phase3(
             text.data_ptr(), text.shape[0], ct.class_of.data_ptr(),
-            ct.start_of_byte.data_ptr(), ct.start_by_ctx.data_ptr(),
-            ct.packed.data_ptr(), m_suf.data_ptr(), i_suf.data_ptr(),
+            ct.start_of_byte.data_ptr(), fs, ct.packed.data_ptr(),
+            m_suf.data_ptr(), i_suf.data_ptr(),
             None if posbase is None else posbase.data_ptr(),
             L.data_ptr(), I.data_ptr(), Q, ct.n_classes, block, nb, int(n),
             ct.dead, torch.cuda.current_stream(dev).cuda_stream,

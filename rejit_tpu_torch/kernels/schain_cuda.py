@@ -10,9 +10,11 @@ Kernel (csrc/schain_fused.cu, built by kernels/build.py):
                 patterns), or the count of boundaries with L >= 0; and G,
                 the text's (f, m, i) state-map summary composed with the
                 seed. Boundary P comes from the seed (the EOT accepts of a
-                standalone text). Byte classes and start states are looked
-                up in the kernel, so no per-byte array but the outputs
-                reaches device memory.
+                standalone text). With `emit_f` (the L modes) also F, each
+                boundary's end state (the TPU's `emit_f`, packed there
+                above L). Byte classes and start states are looked up in
+                the kernel, so no per-byte array but the outputs reaches
+                device memory.
 
 The TPU kernel carried the suffix right to left across its sequential grid;
 CUDA blocks run in no order, so the carry is an explicit pass: per-segment
@@ -34,11 +36,25 @@ instances (`instance_for`):
 The fast-forward chunk skip is kept in both, per 128-byte tile (sweep) or
 NB*K-byte tile (tile). The TPU-only forms (select chains, the dominant
 class, the (8, CHL) tiling, the packed `f<<ms|m`, the rolled `fori_loop`
-form) are not carried over; `emit_f` (shard mode) waits for the streaming
-and mesh slices.
+form) are not carried over.
+
+`emit_f` (stream chunks and windows, engine/stream.py) writes F, a uint8
+tensor of P+1 boundaries (MAX_Q = 256 states fit a byte): the state in
+which the thread that starts at the boundary leaves the text, composed
+with the seed's f; with a neutral seed, the state at the end of the text.
+Past n, where every step is the identity, F is the seed's f at the
+boundary's start state (with a neutral seed, the start state itself, as
+the TPU kernel writes at n). Every boundary of a skipped tile but its
+right edge is in the dead state after its first byte, so its F is the
+seed-composed f at dead. In the sweep instance V then carries f beside m
+(one more shuffle a byte), in the tile instance F is the sub-block
+suffix's f at each thread's end state. `first_start` is boundary 0's start
+state (default `start_by_ctx[0]`; a stream chunk starting at byte a > 0
+passes the start state after byte a-1).
 
 Bounds on an H100 (3.35 TB/s): per text byte the function reads 1 B and
-writes 4 B (L), 8 B (L and I) or nothing (count), and needs Q automaton
+writes 4 B (L), 8 B (L and I) or nothing (count), 1 B more with F, and
+needs Q automaton
 steps; with one pattern at Q = 6 the L mode is bounded by bytes and the
 count mode by operations. The sweep instance takes W steps per byte in its
 emitting pass, each a shared-memory load and one shuffle (three in L+I
@@ -98,11 +114,11 @@ def _kernels() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build.load("schain_fused")
-        lib.schain_fused_tile.argtypes = [_P] * 13 + [_I] * 11 + [_P]
+        lib.schain_fused_tile.argtypes = [_P] * 14 + [_I] * 11 + [_P]
         lib.schain_fused_tile.restype = _I
-        lib.schain_fused_sweep.argtypes = [_P] * 10 + [_I] * 10 + [_P]
+        lib.schain_fused_sweep.argtypes = [_P] * 11 + [_I] * 10 + [_P]
         lib.schain_fused_sweep.restype = _I
-        lib.schain_sweep_max_blocks.argtypes = [_I]
+        lib.schain_sweep_max_blocks.argtypes = [_I, _I]
         lib.schain_sweep_max_blocks.restype = _I
         lib.schain_error_string.argtypes = [_I]
         lib.schain_error_string.restype = ctypes.c_char_p
@@ -196,17 +212,21 @@ def _sweep_table(static: tuple, dev: torch.device) -> torch.Tensor:
         dev)
 
 
-def _boundary_buffer(P: int, dev: torch.device) -> torch.Tensor:
-    """An int32 tensor of P+1 boundaries whose element 1 is 16-byte aligned
-    (the sweep instance stores 16 bytes at a time from boundary 1 on)."""
-    return torch.empty(P + 4, dtype=torch.int32, device=dev)[3:]
+def _boundary_buffer(P: int, dev: torch.device,
+                     dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """A tensor of P+1 boundaries whose element 1 is 16-byte aligned (the
+    sweep instance stores 16 bytes at a time from boundary 1 on)."""
+    lead = 16 // torch.empty((), dtype=dtype).element_size() - 1
+    return torch.empty(P + 1 + lead, dtype=dtype, device=dev)[lead:]
 
 
 @functools.lru_cache(maxsize=16)
-def _sweep_blocks(device_index: Optional[int], mode: str) -> int:
+def _sweep_blocks(device_index: Optional[int], mode: str,
+                  emit_f: bool = False) -> int:
     """CUDA blocks of the sweep instance that the current card holds at
-    once in `mode` (call with that card current)."""
-    b = _kernels().schain_sweep_max_blocks(MODES[mode])
+    once in `mode` (with F written, for emit_f; call with that card
+    current)."""
+    b = _kernels().schain_sweep_max_blocks(MODES[mode], int(emit_f))
     if b <= 0:
         raise RuntimeError("schain_fused: occupancy query failed")
     return b
@@ -218,7 +238,7 @@ def _sweep_blocks(device_index: Optional[int], mode: str) -> int:
 
 
 def _check(ct: DeviceTables, text: torch.Tensor, n: int, seed: torch.Tensor,
-           block: int, mode: str) -> None:
+           block: int, mode: str, emit_f: bool = False) -> None:
     if text.dtype != torch.uint8 or text.dim() != 1:
         raise TypeError(f"text must be a 1-D uint8 tensor, got {text.dtype} "
                         f"of rank {text.dim()}")
@@ -238,6 +258,8 @@ def _check(ct: DeviceTables, text: torch.Tensor, n: int, seed: torch.Tensor,
         raise ValueError("seed must be contiguous")
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {sorted(MODES)}")
+    if emit_f and mode == "count":
+        raise ValueError("emit_f takes the 'l' and 'li' modes, not 'count'")
     if not fits(Q, ct.n_classes, ct.n_patterns):
         raise ValueError(
             f"tables too large for the fused kernel (Q={Q}, "
@@ -251,18 +273,39 @@ def _check(ct: DeviceTables, text: torch.Tensor, n: int, seed: torch.Tensor,
         raise ValueError(f"unsupported device {text.device}")
 
 
+def end_states_plain(ct: DeviceTables, suf_f: torch.Tensor,
+                     text: torch.Tensor, n: int, block: int,
+                     first_start: Optional[int] = None) -> torch.Tensor:
+    """(nb*K,) int32: each boundary's thread run from its start state to its
+    block end (steps at or past n are the identity), then through the
+    block's exclusive suffix map `suf_f` (nb, Q): the F of emit_f."""
+    K = block
+    C = ct.n_classes
+    cls_kb, S, pos_kb = dfa_cuda.block_views(ct, text, K, None, first_start)
+    rows = torch.arange(K, dtype=torch.int32, device=text.device)[:, None]
+    cls_pad = torch.cat([cls_kb, torch.zeros_like(cls_kb)], dim=0)
+    for j in range(K):
+        active = (rows + j < K) & (pos_kb + j < n)
+        val = ct.packed[(S * C + cls_pad[j:j + K]).long()]
+        S = torch.where(active, val >> 8, S)
+    return torch.gather(suf_f, 1, S.T.long()).reshape(-1)
+
+
 def schain_fused_plain(
     ct: DeviceTables, text: torch.Tensor, n: int, seed: torch.Tensor, *,
     block: int = DEFAULT_BLOCK, mode: str = "li",
-) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    first_start: Optional[int] = None, emit_f: bool = False,
+):
     """schain_fused in torch ops, from the split pipeline's pieces: phase 1,
-    the suffix scan seeded with `seed`, phase 3; boundary P from the seed
-    at the start state after the last byte; G = block 0's summary composed
-    with its exclusive suffix."""
+    the suffix scan seeded with `seed`, phase 3 (boundary 0 from
+    `first_start`); boundary P from the seed at the start state after the
+    last byte; G = block 0's summary composed with its exclusive suffix;
+    with emit_f, F from `end_states_plain` (uint8)."""
     P = text.shape[0]
+    fs = dfa_cuda.first_start_of(ct, first_start)
     summ = dfa_cuda.phase1_plain(ct, text, n, block)
     suf = pipeline.suffix_scan(summ, tuple(seed))
-    L, I = dfa_cuda.phase3_plain(ct, suf, text, n, block)
+    L, I = dfa_cuda.phase3_plain(ct, suf, text, n, block, first_start=fs)
     st = pipeline.start_eot(ct, text).view(1).long()
     L = torch.cat([L, seed[1].index_select(0, st)])
     I = torch.cat([I, seed[2].index_select(0, st)])
@@ -273,16 +316,20 @@ def schain_fused_plain(
     ))
     if mode == "count":
         return torch.count_nonzero(L >= 0).to(torch.int32), None, G
-    if mode == "l":
-        return L, None, G
-    return L, I.masked_fill(beyond, -1), G
+    I = None if mode == "l" else I.masked_fill(beyond, -1)
+    if not emit_f:
+        return L, I, G
+    F = torch.cat([end_states_plain(ct, suf[0], text, n, block, fs),
+                   seed[0].index_select(0, st)])
+    return L, I, G, F.to(torch.uint8)
 
 
 def schain_fused(
     ct: DeviceTables, text: torch.Tensor, n: int, seed: torch.Tensor, *,
     block: int = DEFAULT_BLOCK, mode: str = "li", use_ff: bool = True,
-    stats: Optional[dict] = None,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    stats: Optional[dict] = None, first_start: Optional[int] = None,
+    emit_f: bool = False,
+):
     """(L, I, G) for a padded uint8 text of P bytes (P a multiple of
     `block`) of which the first n are real, seeded at the right edge with
     `seed` (3, Q) int32: the kernel on CUDA tensors, the plain version on
@@ -295,9 +342,13 @@ def schain_fused(
     (results are the same). The kernel instance is `instance_for(Q)`.
     When `stats` is a dict, a kernel call stores there its instance, its
     tile count ("tiles") and a device tensor of the tiles it skipped
-    ("skipped_tiles")."""
+    ("skipped_tiles"). `first_start` is boundary 0's start state (default
+    start_by_ctx[0]). With `emit_f` ('l' and 'li' modes) the result is
+    (L, I, G, F): F is (P+1,) uint8, each boundary's end state composed
+    with the seed's f (module doc), defined past n too."""
     return _fused(ct, text, n, seed, instance_for(ct.n_states), block=block,
-                  mode=mode, use_ff=use_ff, stats=stats)
+                  mode=mode, use_ff=use_ff, stats=stats,
+                  first_start=first_start, emit_f=emit_f)
 
 
 def _schain_fused_tile(
@@ -313,12 +364,15 @@ def _fused(
     ct: DeviceTables, text: torch.Tensor, n: int, seed: torch.Tensor,
     instance: str, *, block: int = DEFAULT_BLOCK, mode: str = "li",
     use_ff: bool = True, stats: Optional[dict] = None,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    first_start: Optional[int] = None, emit_f: bool = False,
+):
     """schain_fused by `instance` ('sweep' takes Q <= SWEEP_MAX_Q)."""
     Q, C = ct.n_states, ct.n_classes
-    _check(ct, text, n, seed, block, mode)
+    _check(ct, text, n, seed, block, mode, emit_f)
+    fs = dfa_cuda.first_start_of(ct, first_start)
     if text.device.type == "cpu":
-        return schain_fused_plain(ct, text, n, seed, block=block, mode=mode)
+        return schain_fused_plain(ct, text, n, seed, block=block, mode=mode,
+                                  first_start=fs, emit_f=emit_f)
     if text.data_ptr() % 16:
         raise ValueError("text must be 16-byte aligned")
     lib = _kernels()
@@ -326,11 +380,13 @@ def _fused(
     P = text.shape[0]
     fp = ct.plan
     skip = bool(use_ff and fp.skip)
-    L = I = None
+    L = I = F = None
     if mode != "count":
         L = _boundary_buffer(P, dev)
     if mode == "li":
         I = _boundary_buffer(P, dev)
+    if emit_f:
+        F = _boundary_buffer(P, dev, torch.uint8)
     G = torch.empty((3, Q), dtype=torch.int32, device=dev)
     counts = torch.zeros(2, dtype=torch.int32, device=dev)
 
@@ -341,7 +397,7 @@ def _fused(
         stream = torch.cuda.current_stream(dev).cuda_stream
         if instance == "sweep":
             W, ntiles, tpc, nseg = sweep_geometry(
-                Q, P, _sweep_blocks(dev.index, mode))
+                Q, P, _sweep_blocks(dev.index, mode, emit_f))
             segs = torch.empty((2, nseg, 3, Q), dtype=torch.int32,
                                device=dev)
             chunk_x = torch.empty((nseg, 3, SWEEP_THREADS),
@@ -350,10 +406,9 @@ def _fused(
             err = lib.schain_fused_sweep(
                 text.data_ptr(), _sweep_table(ct.static, dev).data_ptr(),
                 seed.data_ptr(), segs[0].data_ptr(), segs[1].data_ptr(),
-                chunk_x.data_ptr(), ptr(L), ptr(I),
+                chunk_x.data_ptr(), ptr(L), ptr(I), ptr(F),
                 G.data_ptr(), counts.data_ptr(), Q, W, P, int(n),
-                fp.start_by_ctx[0], dead, int(skip), tpc, nseg, MODES[mode],
-                stream,
+                fs, dead, int(skip), tpc, nseg, MODES[mode], stream,
             )
         else:
             NB, ntiles, tps, nseg = geometry(Q, block, P)
@@ -363,9 +418,9 @@ def _fused(
                 text.data_ptr(), ct.packed.data_ptr(), ct.class_of.data_ptr(),
                 ct.start_of_byte.data_ptr(), ct.byte_flags.data_ptr(),
                 seed.data_ptr(), segs[0].data_ptr(), segs[1].data_ptr(),
-                segs[2].data_ptr(), ptr(L), ptr(I), G.data_ptr(),
+                segs[2].data_ptr(), ptr(L), ptr(I), ptr(F), G.data_ptr(),
                 counts.data_ptr(), Q, C, block, NB, P, int(n),
-                fp.start_by_ctx[0], fp.dead if skip else -1, int(skip), tps,
+                fs, fp.dead if skip else -1, int(skip), tps,
                 MODES[mode], stream,
             )
     if err:
@@ -378,6 +433,8 @@ def _fused(
                      skipped_tiles=counts[1])
     if mode == "count":
         return counts[0], None, G
+    if emit_f:
+        return L, I, G, F
     return L, I, G
 
 

@@ -34,6 +34,7 @@ def test_import_loads_no_jax_and_no_rejit_tpu():
         "import rejit_tpu_torch.kernels.extract_cuda\n"
         "import rejit_tpu_torch.kernels.scan_cuda\n"
         "import rejit_tpu_torch.kernels.classlit\n"
+        "import rejit_tpu_torch.engine.stream\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib') "
         "or m == 'rejit_tpu' or m.startswith('rejit_tpu.'))\n"
@@ -153,10 +154,23 @@ def test_fused_wrapper_checks_and_plain_run_counts_no_launch():
         schain_cuda.schain_fused(ct, text, 60, seed.long())
     with pytest.raises(ValueError):
         schain_cuda.schain_fused(ct, text, 60, seed, mode="spans")
+    with pytest.raises(ValueError, match="emit_f"):
+        schain_cuda.schain_fused(ct, text, 60, seed, mode="count",
+                                 emit_f=True)
+    for fs in (-1, ct.n_states):
+        with pytest.raises(ValueError, match="first_start"):
+            schain_cuda.schain_fused(ct, text, 60, seed, first_start=fs)
+        with pytest.raises(ValueError, match="first_start"):
+            dfa_cuda.phase3(ct, dfa_cuda.phase1(ct, text, 60, 8), text, 60,
+                            8, first_start=fs)
     schain_cuda.reset_launches()
     for mode in ("l", "li", "count"):
         out, I, G = schain_cuda.schain_fused(ct, text, 60, seed, mode=mode)
         assert G.shape == (3, ct.n_states)
         assert out.shape == (() if mode == "count" else (65,))
         assert (I is None) == (mode != "li")
+    for mode in ("l", "li"):
+        *_, F = schain_cuda.schain_fused(ct, text, 60, seed, mode=mode,
+                                         emit_f=True, first_start=0)
+        assert F.dtype == torch.uint8 and F.shape == (65,)
     assert schain_cuda.LAUNCHES == {"schain_fused": 0}

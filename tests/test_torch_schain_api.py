@@ -60,9 +60,13 @@ def test_api_fused_equals_jax(i):
     p = rt.Pattern(pats, ON, device="cpu")
     q = rejit_tpu.Pattern([x.decode("latin-1") for x in pats], JCFG)
     assert p.fused and q._use_schain_fused()
-    assert p.match_all(text) == q.match_all(text)
-    assert p.match_all_count(text) == q.match_all_count(text)
-    assert p.tokenize(text) == q.tokenize(text)
+    # One JAX reference serves the three calls: its count is its number of
+    # spans (the count kernel itself is held against JAX's count mode in
+    # tests/test_torch_schain.py).
+    want = q.tokenize(text)
+    assert p.tokenize(text) == want
+    assert p.match_all(text) == [(s, e) for s, e, _ in want]
+    assert p.match_all_count(text) == len(want)
 
 
 @pytest.mark.parametrize(
@@ -107,10 +111,14 @@ def test_stage_equals_jax_on_every_entry_point(pats):
     pc = rt.stage(text, device="cpu")
     qc = rejit_tpu.stage(text)
     for op in ("match_full", "match_anywhere", "match_first", "match_all",
-               "tokenize", "match_all_count"):
+               "tokenize"):
         got = getattr(p, op)(pc)
         assert got == getattr(q, op)(qc), op
         assert got == getattr(p, op)(text), op
+    # The JAX count is its number of spans (its count kernel is held
+    # against the port's in tests/test_torch_schain.py).
+    assert p.match_all_count(pc) == len(q.match_all(qc)) == \
+        p.match_all_count(text)
     for a, b in zip(p.match_all_arrays(pc), q.match_all_arrays(qc)):
         np.testing.assert_array_equal(a, b)
     assert pc.uploads == 1
