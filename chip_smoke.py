@@ -86,7 +86,28 @@ per source, all started together), then:
    both routes; no chunk retried; outside --quick the stream walls (with
    and without a state directory), emit_f against L mode and the early
    exit against the full scan;
-9. times the kernels, their plain versions, the library calls, the split
+9. runs the gather probe (`gather_probe_phase`), the last TPU kernel's
+   counterpart: gather_probe held bit-equal to its plain version in both
+   modes (n = 0 and 1, U = 1 and 8, QS = 8, 32 and 128, one block and one
+   a SM, and at the script's defaults on every SM), its SASS opcode counts
+   (cuobjdump), then the probe's own path (`probes.gather_probe.measure`,
+   serial and select at ITERS 4096, U 8, QS 32, on one block and on every
+   SM's resident blocks) with its launch count, the ratio of the lookup
+   and select-row rates, the Q where one lookup costs a Q-term select
+   chain, and (outside --quick) the lookup rate with conflict-free banks;
+10. runs the DFA-blowup fallback chain (`posnfa_phase`): `(a|b)*a(a|b){14}`
+   under the default Config must take the posnfa engine with the JAX
+   package's warning and match 10 MB of `default_rng(7).choice(b"aabbx")`
+   (five 2 MiB chunks of the exact sweep) equal to `re`, its 64 KB prefix
+   equal to the port's CPU run and to the oracle; match_first, match_full,
+   match_anywhere, tokenize, match_all_count, a staged corpus and the
+   stream (killed after 2 chunks and resumed, and its first/anywhere/full
+   forms) agree; `(a|b)*a(a|b){45}` (W = 3, K = 128) on the same text; no
+   CUDA kernel of the port is launched (torch ops); the oracle route (a
+   forced engine and a `posnfa='off'` blowup) on 2 KB equal to `re`;
+   outside --quick the walls, per-chunk device ms, peak memory and the
+   byte bound;
+11. times the kernels, their plain versions, the library calls, the split
    route's stages and the entry points' walls (host bytes and staged
    corpus) with CUDA events and the host clock, on the 10 MB text and on
    a 256 MiB text from the same generator, and config 1 at 10 MiB and
@@ -95,7 +116,8 @@ per source, all started together), then:
    peak memory, the live work b1_work counts and the bounds from it) on
    config 3 at both sizes, the 250-word alternation at 10 MB (with its
    match_all_arrays wall) and config 3's table on 10 MB of letters; last,
-   schain_fused per launch (torch.profiler).
+   schain_fused per launch and the posnfa engine's device operations on
+   one 2 MiB chunk (torch.profiler).
 
 Every result is a JSON line; the `{"kernels": [...]}` line and the card's
 nvidia-smi line come just before the last line, which is
@@ -146,6 +168,7 @@ SOURCES = {
     "literal_spans": "rejit_tpu_torch/kernels/csrc/literal_spans.cu",
     "scan1d": "rejit_tpu_torch/kernels/csrc/scan1d.cu",
     "schain_fused_emit_f": "rejit_tpu_torch/kernels/csrc/schain_fused.cu",
+    "gather_probe": "rejit_tpu_torch/kernels/csrc/gather_probe.cu",
 }
 REPLACES = {
     "dfa_phase1": "rejit_tpu/kernels/dfa_pallas.py:95",
@@ -154,6 +177,7 @@ REPLACES = {
     "literal_spans": "rejit_tpu/kernels/extract_pallas.py:118",
     "scan1d": "rejit_tpu/kernels/scan1d.py:94",
     "schain_fused_emit_f": "rejit_tpu/kernels/schain_pallas.py:1070 (emit_f)",
+    "gather_probe": "bench/gather_probe.py:46",
 }
 DEV = "cuda"
 WORD_CHARS = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz  ", np.uint8)
@@ -161,6 +185,22 @@ ENTRY_POINTS = ("match_full", "match_anywhere", "match_first", "match_all",
                 "tokenize", "match_all_count")
 STREAM_CHUNK = 8 << 20   # chunk_bytes of the stream phase
 STREAM_SIZE = 256 << 20
+# The JAX package's posnfa workload (bench/harness.py config3_posnfa_blowup):
+# a DFA blowup (~2^15 states) over default_rng(7).choice(b"aabbx") bytes;
+# Q = 32 positions (one word, K = 64). Beside it the W = 3 case (Q ~ 100,
+# K = 128) of tests/unit/test_posnfa.py.
+POSNFA_PATTERN = rb"(a|b)*a(a|b){14}"
+POSNFA_W3_PATTERN = rb"(a|b)*a(a|b){45}"
+POSNFA_SIZE = 10_000_000
+POSNFA_CHECK = 1 << 16   # the prefix held against the CPU run and the oracle
+POSNFA_CHUNK = 2 << 20   # Config.posnfa_chunk_bytes: the stream's chunks
+# The gather probe: the JAX script's defaults, and the shorter chains the
+# kernel is held against its plain version on.
+PROBE_DEFAULTS = dict(iters=4096, u=8, qs=32)
+PROBE_CHECK_ITERS = 37
+# 32-bit shared-memory loads an H100 SM issues a clock (128 B/clk): a
+# quarter of its 128 integer lanes, so a quarter of the lane rate.
+SMEM_LOADS_PER_S = PEAK_LANE_OPS_PER_S / 4
 
 
 START = time.perf_counter()
@@ -1011,8 +1051,9 @@ class Stop(Exception):
     pass
 
 
-def killed_and_resumed(p, text: bytes, state_dir: str, after: int = 5):
-    """match_all_stream of `text` in STREAM_CHUNK chunks, killed by its
+def killed_and_resumed(p, text: bytes, state_dir: str, after: int = 5,
+                       chunk: int = STREAM_CHUNK):
+    """match_all_stream of `text` in `chunk`-byte chunks, killed by its
     progress callback after `after` chunks, then resumed from `state_dir`:
     (result, chunks done before the kill, chunks of the resume)."""
     done, resumed = [], []
@@ -1023,12 +1064,12 @@ def killed_and_resumed(p, text: bytes, state_dir: str, after: int = 5):
             raise Stop()
 
     try:
-        p.match_all_stream(text, chunk_bytes=STREAM_CHUNK,
+        p.match_all_stream(text, chunk_bytes=chunk,
                            state_dir=state_dir, progress=bomb)
         check(False, "the stream was not killed")
     except Stop:
         pass
-    out = p.match_all_stream(text, chunk_bytes=STREAM_CHUNK,
+    out = p.match_all_stream(text, chunk_bytes=chunk,
                              state_dir=state_dir,
                              progress=lambda i, nc: resumed.append(i))
     check(resumed == list(range(done[-1] - 1, -1, -1))
@@ -1252,6 +1293,298 @@ def stream_phase(rt, p, wp, words, quick: bool, reset, launches,
     return row
 
 
+def probe_sass() -> dict:
+    """Opcode counts of the gather_probe kernels' SASS at the default U = 8
+    (cuobjdump -sass on the built library): the serial kernel's lookups
+    are shared-memory loads (LDS) in its loop, not hoisted out of it; the
+    select kernel compares and selects (ISETP, SEL) and reads no table
+    (no LDS)."""
+    from rejit_tpu_torch.kernels import build
+
+    _, lib, _ = build._paths("gather_probe")
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out = {}
+    for name, sel in (("serial", "false"), ("select", "true")):
+        # Functions are listed by their mangled names: the U = 8 instance
+        # is ...ILi8ELb0E... (serial) or ...ILi8ELb1E... (select).
+        tag = f"ILi8ELb{int(sel == 'true')}E"
+        body, on = [], False
+        for line in sass.splitlines():
+            if "Function :" in line:
+                on = tag in line
+            elif on:
+                body.append(line)
+        ops = {}
+        for line in body:
+            m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                          line)
+            if m:
+                op = m.group(1).split(".")[0]
+                ops[op] = ops.get(op, 0) + 1
+        out[name] = {k: ops.get(k, 0) for k in
+                     ("LDS", "LDG", "LDC", "STS", "ISETP", "SEL", "LEA",
+                      "IMAD", "BRA")}
+        out[name]["instructions"] = sum(ops.values())
+    return out
+
+
+def gather_probe_phase(reset, launches, quick: bool) -> dict:
+    """The gather probe on the card: the kernel held bit-equal to its
+    plain version in both modes (n = 0 and 1, U = 1 and 8, QS = 8, 32 and
+    128, one block and one per SM, and at the script's defaults); the
+    probe's path (`probes.gather_probe.measure`, both modes at the
+    defaults on one block and on every SM's resident blocks) with its
+    launch count; the ratio of the two rates and the Q at which one
+    lookup step costs a Q-term select chain; the SASS. Returns the
+    kernels-line row."""
+    from rejit_tpu_torch.kernels import probe_cuda as pc
+    from rejit_tpu_torch.probes import gather_probe as gp
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    err, calls = 0, 0
+    for mode, qss in (("serial", (0,)), ("select", (8, 32, 128))):
+        for qs in qss:
+            for u in (1, 8):
+                t, y = gp.inputs(u, DEV)
+                for n in (0, 1):
+                    want = pc.gather_chain_plain(
+                        t, y, n, iters=PROBE_CHECK_ITERS, mode=mode, qs=qs)
+                    for replicas in (1, sms):
+                        got = pc.gather_chain(
+                            t, y, n, iters=PROBE_CHECK_ITERS, mode=mode,
+                            qs=qs, replicas=replicas)
+                        err = max(err, max_abs_err(
+                            got, want.expand(replicas, -1, -1)))
+                        calls += 1
+    d = PROBE_DEFAULTS
+    t, y = gp.inputs(d["u"], DEV)
+    for mode in ("serial", "select"):
+        want = pc.gather_chain_plain(t, y, 1, iters=d["iters"], mode=mode,
+                                     qs=d["qs"])
+        got = pc.gather_chain(t, y, 1, iters=d["iters"], mode=mode,
+                              qs=d["qs"], replicas=sms)
+        err = max(err, max_abs_err(got, want.expand(sms, -1, -1)))
+        calls += 1
+    emit({"phase": "gather_probe_vs_plain", "calls": calls,
+          "max_abs_err": err, "sms": sms})
+    check(err == 0, "gather_probe differs from its plain version")
+    try:
+        sass = probe_sass()
+    except Exception as exc:  # the listing only; no result depends on it
+        sass = {"error": repr(exc)}
+    emit({"phase": "gather_probe_sass", "u": 8, **sass})
+
+    # The probe's path, as `python -m rejit_tpu_torch.probes.gather_probe`
+    # runs it, with its own launch count.
+    iters = 64 if quick else d["iters"]
+    reset()
+    rows = {}
+    for mode in ("serial", "select"):
+        for where, replicas in (("one_block", 1), ("card", 0)):
+            rows[mode + "_" + where] = gp.measure(
+                mode=mode, u=d["u"], iters=iters, qs=d["qs"],
+                replicas=replicas, device=DEV)
+    n_launches = launches()["gather_probe"]
+    check(n_launches > 0, "the probe path launched no gather_probe")
+    res = {"phase": "gather_probe", "iters": iters, "rows": rows,
+           "launches": n_launches}
+    for where in ("one_block", "card"):
+        ratio = (rows["serial_" + where]["lookups_per_sec"]
+                 / rows["select_" + where]["select_rows_per_sec"])
+        res["lookup_over_select_row_" + where] = ratio
+        res["break_even_q_" + where] = 1 / ratio
+    card = rows["serial_card"]
+    lookups = d["u"] * iters * card["replicas"] * 1024
+    sel = rows["select_card"]
+    sel_ops = 2 * d["u"] * iters * d["qs"] * sel["replicas"] * 1024
+    res["serial_bound_ms"] = lookups / SMEM_LOADS_PER_S * 1e3
+    res["select_bound_ms"] = sel_ops / PEAK_LANE_OPS_PER_S * 1e3
+    if not quick:
+        # The same serial chain with identity table rows and each chain at
+        # its lane's own index: a warp's 32 loads hit 32 banks. Against
+        # the random permutation (about 3.5 loads a bank on the busiest
+        # bank of a warp), this reads what bank conflicts cost a lookup.
+        ident = torch.arange(128, dtype=torch.int32, device=DEV).repeat(
+            8 * d["u"], 1)
+        ti = ident[:8].contiguous()
+        for where, replicas in (("one_block", 1), ("card", card["replicas"])):
+            sec = gp.seconds_per_call(lambda: pc.gather_chain(
+                ti, ident, 0, iters=iters, mode="serial", qs=0,
+                replicas=replicas), DEV)
+            res["conflict_free_lookups_per_sec_" + where] = (
+                d["u"] * iters * replicas * 1024 / sec)
+    row = {"launches": n_launches, "max_abs_err": err}
+    if not quick:
+        row.update(
+            ms=card["sec_per_call"] * 1e3,
+            plain_ms=time_ms(lambda: pc.gather_chain_plain(
+                t, y, 0, iters=d["iters"], mode="serial", qs=d["qs"],
+                replicas=card["replicas"]), 1, 1),
+            bound_ms=res["serial_bound_ms"], bound_by="operations")
+        res["select_ms"] = sel["sec_per_call"] * 1e3
+        res["serial_plain_ms"] = row["plain_ms"]
+    emit(res)
+    return row
+
+
+def posnfa_text(size: int) -> bytes:
+    return np.random.default_rng(7).choice(
+        np.frombuffer(b"aabbx", np.uint8), size=size).tobytes()
+
+
+def posnfa_phase(rt, reset, launches, only, quick: bool) -> dict:
+    """The DFA-blowup fallback chain on the card: (a|b)*a(a|b){14} under
+    the default Config must land on the posnfa engine with the reference's
+    warning and run the 10 MB text of the JAX package's posnfa workload
+    (five 2 MiB chunks of the exact sweep) equal to `re`, to the port's
+    CPU run and to the oracle on a prefix; every entry point and the
+    stream killed after 2 chunks and resumed; the W = 3 pattern beside it;
+    the oracle route on a small text. Outside --quick: walls, per-chunk
+    device ms, peak memory and the byte bound. Returns what the profiler
+    reads at the end (the pattern and a chunk)."""
+    import shutil
+    import tempfile
+    import warnings
+
+    from rejit_tpu_torch.engine import nfaset
+
+    text = posnfa_text(POSNFA_SIZE)
+    res = {}
+    chunk = POSNFA_CHUNK
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_posnfa_")
+    try:
+        for label, pat in (("W1", POSNFA_PATTERN), ("W3", POSNFA_W3_PATTERN)):
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                p = rt.Pattern(pat, device=DEV)
+            check(p.engine == "posnfa" and any(
+                "position-NFA" in str(x.message) for x in w),
+                f"{pat!r}: engine {p.engine}, warnings {len(w)}")
+            pt = p._posnfa
+            K = p._posnfa_block()
+            reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = p.match_all_arrays(text)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            got = launches()
+            check(only(got), f"posnfa launched a CUDA kernel: {got}")
+            check(p.last_stats.engine == "posnfa", "posnfa stats")
+            want = re_spans(pat, text)
+            check(spans_of(out) == want, f"{label}: spans differ from re")
+            pre = text[:POSNFA_CHECK]
+            pre_out = p.match_all_arrays(pre)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                cpu = rt.Pattern(pat, device="cpu")
+            check(cpu.engine == "posnfa" and same_arrays(
+                cpu.match_all_arrays(pre), pre_out), f"{label}: CPU run")
+            orc = rt.Pattern(pat, rt.Config(engine="oracle"), device=DEV)
+            check(orc.tokenize(pre) == p.tokenize(pre), f"{label}: oracle")
+            r = {"pattern": pat.decode(), "Q": pt.Q, "W": pt.W, "F": pt.F,
+                 "K": K, "n": len(text), "matches": len(want),
+                 "launches": got, "peak_device_bytes": peak,
+                 "equal_to_re": True, "prefix": len(pre),
+                 "prefix_matches": len(pre_out[0]),
+                 "prefix_equal_to_cpu_and_oracle": True}
+            if label == "W1":
+                m = p.match_first(text)
+                check(m == (int(out[0][0]), int(out[1][0])), "match_first")
+                check(not p.match_full(text) and p.match_anywhere(text),
+                      "match_full / match_anywhere")
+                full = p.match_full(b"ab" * 8)
+                check(full == bool(re.fullmatch(pat, b"ab" * 8)),
+                      "match_full of a match")
+                tok = p.tokenize(text)
+                check(tok == list(zip(out[0].tolist(), out[1].tolist(),
+                                      [0] * len(want))), "tokenize")
+                check(p.match_all_count(text) == len(want), "count")
+                corpus = rt.stage(text, DEV)
+                check(same_arrays(p.match_all_arrays(corpus), out),
+                      "staged corpus")
+                del corpus
+                reset()
+                sout, done, resumed = killed_and_resumed(
+                    p, text, os.path.join(tmp, "w1"), after=2, chunk=chunk)
+                check(same_arrays(sout, out), "posnfa stream differs from "
+                      "match_all_arrays")
+                check(only(launches()), "posnfa stream launched a kernel")
+                check(p.match_first_stream(text, chunk_bytes=chunk) == m
+                      and p.match_anywhere_stream(text, chunk_bytes=chunk)
+                      and not p.match_full_stream(text, chunk_bytes=chunk),
+                      "posnfa first/anywhere/full stream")
+                r.update(match_first=m, stream_chunks=-(-len(text) // chunk),
+                         killed_after=done, resumed_chunks=len(resumed),
+                         entry_points_equal=True)
+            if not quick:
+                head = text[:chunk]
+                P = -(-chunk // K) * K
+                td = padded(head, DEV, P)
+                r["chunk_bytes"] = chunk
+                r["chunk_ms"] = time_ms(lambda: nfaset.l_arrays_device_nfaset(
+                    pt, td, len(head), block=K), 3, 1)
+                r["chunk_bound"] = bound(9 * chunk, 0)
+                r["match_all_arrays_wall"] = wall_s(
+                    lambda: p.match_all_arrays(text), 3)
+                r["gb_per_s"] = (len(text) / r["match_all_arrays_wall"]
+                                 ["median_s"] / 1e9)
+                r["bound"] = bound(9 * len(text), 0)
+            emit({"phase": "posnfa_" + label, **r})
+            res[label] = (p, pt, K)
+        # The oracle route: a forced engine and a posnfa='off' blowup.
+        small = text[:2048]
+        want = re_spans(POSNFA_PATTERN, small)
+        forced = rt.Pattern(POSNFA_PATTERN, rt.Config(engine="oracle"),
+                            device=DEV)
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            off = rt.Pattern(POSNFA_PATTERN, rt.Config(posnfa="off"),
+                             device=DEV)
+        check(forced.engine == off.engine == "oracle" and any(
+            "falling back" in str(x.message) for x in w), "oracle route")
+        for q in (forced, off):
+            check(q.match_all(small) == want, "oracle spans differ from re")
+        emit({"phase": "oracle_route", "n": len(small),
+              "matches": len(want), "equal_to_re": True})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def posnfa_launches(pt, K: int, chunk: int) -> dict:
+    """CUDA kernels and device ms of one l_arrays_device_nfaset call on a
+    chunk of the posnfa text, by the profiler (run last)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rejit_tpu_torch.engine import nfaset
+
+    td = padded(posnfa_text(chunk), DEV, K)
+    run = lambda: nfaset.l_arrays_device_nfaset(pt, td, chunk, block=K)
+    run()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        kernels, ms, top = 0, 0.0, []
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0)
+            if us > 0:
+                kernels += e.count
+                ms += us / 1e3
+                top.append((us / 1e3, e.count, e.key[:60]))
+        top.sort(reverse=True)
+        return {"device_ops": kernels, "device_ms": ms, "top": top[:8]}
+    except Exception as exc:  # the measurement only
+        return {"error": repr(exc)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device available", file=sys.stderr)
@@ -1268,11 +1601,12 @@ def main() -> int:
     from rejit_tpu_torch.kernels import build
     from rejit_tpu_torch.kernels import dfa_cuda as dc
     from rejit_tpu_torch.kernels import extract_cuda as xc
+    from rejit_tpu_torch.kernels import probe_cuda as pc
     from rejit_tpu_torch.kernels import scan_cuda as scn
     from rejit_tpu_torch.kernels import schain_cuda as sc
     from rejit_tpu_torch.utils.corpus import make_corpus
 
-    counters = (dc, sc, xc, scn)
+    counters = (dc, sc, xc, scn, pc)
 
     def launches():
         torch.cuda.synchronize()
@@ -1688,7 +2022,16 @@ def main() -> int:
     check(errs["schain_fused_emit_f"] == 0, "schain_fused emit_f differs "
           "from its plain version at the stream path's shapes")
 
-    # 9. Times at 10 MB and 256 MiB.
+    # 9. The gather probe, the last TPU kernel: held against its plain
+    # version, then its own path (both modes, one block and the card).
+    probe_row = gather_probe_phase(reset, launches, quick)
+    errs["gather_probe"] = probe_row.pop("max_abs_err")
+
+    # 10. The DFA-blowup fallback chain: the posnfa engine on the JAX
+    # package's posnfa workload (10 MB), and the oracle route.
+    posnfa = posnfa_phase(rt, reset, launches, only, quick)
+
+    # 11. Times at 10 MB and 256 MiB.
     times = {}
     if not quick:
         t10, _ = time_size(rt, main_text, "10MB", reps=20, wall_reps=10)
@@ -1727,6 +2070,10 @@ def main() -> int:
             emit({"phase": "times_per_launch",
                   **time_launches(rt, text, label, reps)})
             del text
+        for label, (_, pt, block) in posnfa.items():
+            emit({"phase": "posnfa_launches", "pattern": label,
+                  "chunk_bytes": POSNFA_CHUNK,
+                  **posnfa_launches(pt, block, POSNFA_CHUNK)})
 
     kernels = []
     path_launches = {
@@ -1734,9 +2081,12 @@ def main() -> int:
         "literal_spans": kw_launches["literal_spans"],
         "scan1d": sum(b3.values()),
         "schain_fused_emit_f": emit_f_row.pop("launches"),
+        "gather_probe": probe_row.pop("launches"),
     }
     for k, v in emit_f_row.items():
         times["schain_fused_emit_f_" + k] = v
+    for k, v in probe_row.items():
+        times["gather_probe_" + k] = v
     for name in SOURCES:
         row = {
             "name": name, "route": "cuda", "source": SOURCES[name],

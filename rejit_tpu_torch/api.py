@@ -21,6 +21,12 @@ package does, see `choose_engine`):
 - classrun / classlit (`\\b?[class]{lo,hi}\\b?`, and the same with a
   literal suffix): elementwise torch ops around cumulative scans, the
   scan1d kernel on the card (kernels/scan_cuda.py).
+- posnfa (`Config.engine='posnfa'`, `Config.posnfa='on'`, or the DFA-blowup
+  fallback): the position-NFA bit-set engine, engine/nfaset.py, torch ops
+  with per-byte work linear in pattern size; texts over
+  `Config.posnfa_chunk_bytes` run its exact chunked sweep;
+- oracle (`Config.engine='oracle'`, or the last step of the blowup
+  fallback): the pure-Python NFA simulation of oracle.py, on the host;
 - dfa, by one of two routes (`Config.schain_fused`):
   - the fused route, kernels/schain_cuda.py: one schain_fused kernel call
     matches the whole text from its bytes, and an overlap-free
@@ -36,8 +42,14 @@ package does, see `choose_engine`):
 engines (B3, B4): 'auto' takes them on the card, 'on' on either device
 (the kernels' plain versions on the CPU), 'off' takes the torch-op routes.
 
+A DFA blowup under automatic engine choice never hard-fails a supported
+pattern (`Pattern._blowup_fallback`): subset construction again at 4x the
+budgets, then the posnfa engine (unless `Config.posnfa='off'`), then the
+oracle, each with a RuntimeWarning, as in the JAX package.
+
 `stage(text)` uploads a corpus once for repeated scans: every entry point
-takes the DeviceCorpus in place of a text. Entry points run on the card
+takes the DeviceCorpus in place of a text (the posnfa and oracle engines
+read its host bytes, as in the JAX package). Entry points run on the card
 unless the caller passes `device="cpu"`; with no CUDA device present they
 raise rather than carry on quietly on the CPU.
 """
@@ -45,6 +57,7 @@ from __future__ import annotations
 
 import functools
 import os
+import warnings
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -52,10 +65,12 @@ import torch
 
 from .compile import analysis, ir, parser
 from .compile.dfa import compile_patterns
+from .compile.posnfa import compile_posnfa
 from .config import DEFAULT, Config
-from .engine import pipeline, select, spans
+from .engine import nfaset, pipeline, select, spans
 from .errors import CompileError, StateBlowupError
 from .kernels import classlit, classrun, extract_cuda, literal, schain_cuda
+from .oracle import OraclePattern
 from .utils.stats import MatchStats, Timer
 
 Span = Tuple[int, int]
@@ -64,7 +79,6 @@ PatternLike = Union[str, bytes]
 DeviceLike = Union[None, str, torch.device]
 
 _ENGINES = ("literal", "classrun", "classlit", "dfa", "oracle", "posnfa")
-_NOT_PORTED = ("oracle", "posnfa")
 ELEM_GRAIN = 128    # padding grain of the classrun/classlit texts
 LIT_GRAIN = 1024    # padding grain of the literal engine's texts
 # Bounded class runs with Q ~ hi + 2 at or above this go to the
@@ -86,13 +100,6 @@ def text_to_u8(text: TextLike) -> np.ndarray:
             f"{arr.dtype} array of rank {arr.ndim}"
         )
     return arr
-
-
-def _not_ported(err: StateBlowupError) -> StateBlowupError:
-    return StateBlowupError(
-        f"{err}; the position-NFA and oracle fallbacks for DFA blowups are "
-        "not ported to rejit_tpu_torch yet"
-    )
 
 
 def resolve_device(device: DeviceLike) -> torch.device:
@@ -169,6 +176,20 @@ class DeviceCorpus:
         return t, t.shape[0]
 
 
+def _bucket_blocks(nb: int) -> int:
+    """Smallest 2^k or 3*2^(k-1) >= nb (at most 33% slack): the posnfa
+    engine's padded block counts, as in the JAX package."""
+    if nb <= 1:
+        return 1
+    k = 1
+    while True:
+        if nb <= (3 << (k - 1)):
+            if nb <= (1 << k):
+                return 1 << k
+            return 3 << (k - 1)
+        k += 1
+
+
 def stage(text: TextLike, device: DeviceLike = None) -> DeviceCorpus:
     """Stage a corpus on a device (None = the card) for repeated scanning."""
     return DeviceCorpus(text, device)
@@ -190,11 +211,6 @@ def choose_engine(irs, info: analysis.PatternInfo, config: Config,
     if eng is not None:
         if eng not in _ENGINES:
             raise CompileError(f"unknown engine {eng!r}")
-        if eng in _NOT_PORTED:
-            raise CompileError(
-                f"engine {eng!r} is not ported to rejit_tpu_torch yet; use "
-                "engine=None, 'literal', 'classrun', 'classlit' or 'dfa'"
-            )
         if eng == "literal" and not info.literals:
             raise CompileError(
                 "pattern is not a literal alternation; cannot force the "
@@ -215,6 +231,8 @@ def choose_engine(irs, info: analysis.PatternInfo, config: Config,
                 "literal suffix; cannot force the classlit engine"
             )
         return eng
+    if config.posnfa == "on":
+        return "posnfa"
     if info.literals:
         return "literal"
     if len(irs) != 1:
@@ -282,6 +300,8 @@ class Pattern:
         self.fused_block = config.fused_block or schain_cuda.DEFAULT_BLOCK
         self._classrun = None
         self._classlit = None
+        self._oracle = None
+        self._posnfa = None
         self.last_stats: MatchStats = MatchStats()
         if self.engine in ("classrun", "classlit"):
             kernel = classrun if self.engine == "classrun" else classlit
@@ -296,13 +316,22 @@ class Pattern:
                 self._classlit = luts + tuple(shape)
             self._class_runs = classrun.bitmap_runs(bitmap)
             self._word_runs = classrun.bitmap_runs(ir.WORD)
+        if self.engine == "posnfa":
+            self._posnfa = compile_posnfa(
+                self.irs, max_nfa_states=config.max_nfa_states,
+                max_positions=config.max_pos_states,
+            )
         if self.engine == "dfa":
             try:
                 self.tables = self._compile_tables()
             except StateBlowupError as err:
                 self.tables = self._blowup_fallback(err)
-            self.ct = pipeline.device_tables(self.tables, device=self.device)
-            self.fused = self._use_schain_fused()
+            if self.tables is not None:
+                self.ct = pipeline.device_tables(self.tables,
+                                                 device=self.device)
+                self.fused = self._use_schain_fused()
+        if self.engine == "oracle" and self._oracle is None:
+            self._oracle = OraclePattern(list(self.source))
 
     def _compile_tables(self, scale: int = 1):
         cfg = self.config
@@ -313,18 +342,58 @@ class Pattern:
         )
 
     def _blowup_fallback(self, err: StateBlowupError):
-        """The first step of the JAX package's fallback chain: under
-        automatic engine choice (and `oracle_fallback` not 'off'), retry
-        subset construction once at 4x the state budgets. Forced engines
-        keep the hard error; a second blowup raises, since the position-NFA
-        and oracle fallbacks that follow are not ported yet."""
+        """The JAX package's fallback chain: a supported pattern never
+        hard-fails. Under automatic engine choice (and `oracle_fallback`
+        not 'off'), retry subset construction once at 4x the state
+        budgets; if that blows up too, switch this Pattern to the posnfa
+        engine (unless `Config.posnfa='off'`), and last to the oracle, each
+        with a RuntimeWarning. Returns the tables of the retry, or None
+        when the engine changed. Forced engines keep the hard error, and
+        so does an NFA over even the oracle's budget."""
         cfg = self.config
         if cfg.engine is not None or cfg.oracle_fallback == "off":
             raise err
         try:
             return self._compile_tables(scale=4)
-        except StateBlowupError as err4:
-            raise _not_ported(err4) from err
+        except StateBlowupError:
+            pass
+        names = [p.decode("latin-1") for p in self.source]
+        if cfg.posnfa != "off":
+            # The device escape hatch: per-byte work linear in pattern size.
+            try:
+                self._posnfa = compile_posnfa(
+                    self.irs, max_nfa_states=cfg.max_nfa_states * 4,
+                    max_positions=cfg.max_pos_states,
+                )
+            except StateBlowupError:
+                pass
+            else:
+                warnings.warn(
+                    f"DFA construction exceeded {cfg.max_dfa_states * 4} "
+                    f"states for {names}; using the position-NFA bit-set "
+                    "engine (device-speed, per-byte cost linear in pattern "
+                    "size).",
+                    RuntimeWarning,
+                    stacklevel=3,
+                )
+                self.engine = "posnfa"
+                return None
+        try:
+            self._oracle = OraclePattern(
+                list(self.source), max_states=cfg.max_nfa_states * 4
+            )
+        except StateBlowupError:
+            raise err  # the NFA itself is over budget: genuinely too large
+        warnings.warn(
+            f"DFA construction exceeded {cfg.max_dfa_states * 4} states for "
+            f"{names}; falling back to the NFA-simulation oracle engine "
+            "(correct but slow). Raise Config(max_dfa_states=...) for a "
+            "table-driven engine.",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+        self.engine = "oracle"
+        return None
 
     def _use_schain_fused(self) -> bool:
         """The fused route (kernels/schain_cuda.py) or the split pipeline."""
@@ -424,6 +493,13 @@ class Pattern:
                 lut, wlut, dev_text, n, lo=lo, hi=hi, sfx=sfx,
                 lead_wb=lead_wb, trail_wb=trail_wb, **common,
             )
+        if self.engine == "posnfa":
+            # The host bytes, padded to a bucketed number of blocks.
+            K = self._posnfa_block()
+            P = _bucket_blocks(max(1, -(-n // K))) * K
+            return nfaset.l_arrays_device_nfaset(
+                self._posnfa, _upload_padded(text, P, self.device), n,
+                block=K)
         if self.engine == "literal":
             ext, P = self._literal_ext(text, corpus)
             return literal.literal_l_arrays_device(
@@ -442,6 +518,29 @@ class Pattern:
                 self.ct, dev_text, n, block=K, force=self.config.force_ff
             )
         return pipeline.l_arrays_device(self.ct, dev_text, n, block=K)
+
+    def _posnfa_block(self) -> int:
+        """The posnfa engine's K: Config.posnfa_block, else 64 threads a
+        block for one packed word of positions and 128 for more."""
+        return self.config.posnfa_block or (64 if self._posnfa.W == 1
+                                            else 128)
+
+    _ORACLE_WARN_BYTES = 1 << 20
+
+    def _oracle_guard(self, n: int) -> None:
+        """A call-time cost warning for oracle scans: the compile-time
+        fallback warning may have scrolled away long before a large scan,
+        and the oracle runs at Python speed."""
+        if n > self._ORACLE_WARN_BYTES:
+            warnings.warn(
+                f"pattern {[p.decode('latin-1') for p in self.source]} is "
+                f"served by the pure-Python NFA oracle engine; scanning "
+                f"{n} bytes may take minutes to hours. Raise "
+                "Config(max_dfa_states=...) for a device engine, or "
+                "pre-filter the corpus.",
+                RuntimeWarning,
+                stacklevel=4,
+            )
 
     def _start_mask(self, text: np.ndarray, corpus) -> torch.Tensor:
         """The bitmask route's (P,) candidate-start mask."""
@@ -525,6 +624,11 @@ class Pattern:
 
     def match_full(self, text: TextLike) -> bool:
         t, corpus = _unwrap(text)
+        if self._oracle:
+            with Timer() as t_all:
+                got = self._oracle.match_full(self._oracle_bytes(t))
+            self._record("match_full", len(t), int(got), 0.0, t_all.elapsed)
+            return got
         with Timer() as t_all:
             with Timer() as t_dev:
                 L, _ = self._l_i_device(t, corpus)
@@ -535,6 +639,12 @@ class Pattern:
 
     def match_anywhere(self, text: TextLike) -> bool:
         t, corpus = _unwrap(text)
+        if self._oracle:
+            with Timer() as t_all:
+                got = self._oracle.match_anywhere(self._oracle_bytes(t))
+            self._record("match_anywhere", len(t), int(got), 0.0,
+                         t_all.elapsed)
+            return got
         if self.engine == "dfa" and len(t) > self.config.first_window:
             # Early exit: the doubling-window ladder (engine/stream.py).
             with Timer() as t_all:
@@ -561,6 +671,12 @@ class Pattern:
 
     def match_first(self, text: TextLike) -> Optional[Span]:
         t, corpus = _unwrap(text)
+        if self._oracle:
+            with Timer() as t_all:
+                m = self._oracle.match_first(self._oracle_bytes(t))
+            self._record("match_first", len(t), int(m is not None), 0.0,
+                         t_all.elapsed)
+            return m
         if self.engine == "dfa" and len(t) > self.config.first_window:
             # Early exit: work follows the distance to the first match
             # (doubling windows, engine/stream.py), not the text length. A
@@ -604,6 +720,22 @@ class Pattern:
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """MatchAll as (starts, ends, pattern_ids) numpy arrays."""
         t, corpus = _unwrap(text)
+        if (self.engine == "posnfa"
+                and len(t) > self.config.posnfa_chunk_bytes):
+            # The exact chunked sweep, which carries the suffix element
+            # across chunks, bounds the engine's working set.
+            with Timer() as t_all:
+                out = self.match_all_stream(
+                    t, chunk_bytes=self.config.posnfa_chunk_bytes)
+            self._record("match_all", len(t), len(out[0]), t_all.elapsed,
+                         t_all.elapsed)
+            return out
+        if self._oracle:
+            with Timer() as t_all:
+                out = self._oracle_arrays(t)
+            self._record("match_all", len(t), len(out[0]), 0.0,
+                         t_all.elapsed)
+            return out
         if self._bitmask_ok():
             # Overlap-freedom makes every candidate start a match start, so
             # the start mask is the whole device result; widths and pattern
@@ -670,6 +802,11 @@ class Pattern:
 
     def match_all_count(self, text: TextLike) -> int:
         t, corpus = _unwrap(text)
+        if self._oracle:
+            with Timer() as t_all:
+                cnt = self._oracle.match_all_count(self._oracle_bytes(t))
+            self._record("match_all_count", len(t), cnt, 0.0, t_all.elapsed)
+            return cnt
         if self.engine == "literal" and self.info.overlap_free:
             # A device reduction; no span materialization.
             with Timer() as t_all:
@@ -769,10 +906,7 @@ class Pattern:
         engines compile none, but streaming always runs the DFA path), and
         placed on the device (`self.ct`) for streaming."""
         if self.tables is None:
-            try:
-                self.tables = self._compile_tables()
-            except StateBlowupError as err:
-                raise _not_ported(err) from err
+            self.tables = self._compile_tables()
         if self.ct is None:
             self.ct = pipeline.device_tables(self.tables, device=self.device)
         return self.tables
@@ -810,6 +944,44 @@ class Pattern:
             kw["staged_full"] = self._corpus(corpus).padded(kw["block"])
         return kw
 
+    def _posnfa_stream_kw(self, chunk_bytes: int) -> dict:
+        """Keywords of the posnfa engine's chunked sweep."""
+        return dict(chunk_bytes=chunk_bytes, block=self._posnfa_block(),
+                    device=self.device)
+
+    def _posnfa_candidates(self, data, chunk_bytes: int):
+        """The posnfa sweep's global candidates (pos, end, pid), chunk by
+        chunk: the stream forms of MatchFirst/Anywhere/Full read their
+        answer from them, never the whole source in one call."""
+        return nfaset.stream_candidates_nfaset(
+            self._posnfa, data, **self._posnfa_stream_kw(chunk_bytes))
+
+    def _oracle_bytes(self, data) -> bytes:
+        """The text as bytes for the oracle, after its cost warning."""
+        self._oracle_guard(len(data))
+        return np.asarray(data).tobytes()
+
+    def _oracle_arrays(self, data):
+        """The oracle's MatchAll as (starts, ends, pids) int64 arrays."""
+        triples = self._oracle.match_all_ids(self._oracle_bytes(data))
+        arr = np.array(triples, dtype=np.int64).reshape(-1, 3)
+        return arr[:, 0], arr[:, 1], arr[:, 2]
+
+    def _stream_all(self, data, chunk_bytes, state_dir, progress):
+        """match_all_stream's (starts, ends, pids) on this engine."""
+        from .engine import stream
+
+        if self._oracle:
+            return self._oracle_arrays(data)
+        if self.engine == "posnfa":
+            return nfaset.stream_match_all_nfaset(
+                self._posnfa, data, state_dir=state_dir, progress=progress,
+                **self._posnfa_stream_kw(chunk_bytes))
+        return stream.stream_match_all(
+            self._dfa_tables(), data, state_dir=state_dir,
+            progress=progress, **self._stream_first_kw(chunk_bytes),
+        )
+
     def match_all_stream(self, source, *, chunk_bytes: int = 8 << 20,
                          state_dir: Optional[str] = None, progress=None):
         """Exact chunked MatchAll over a corpus of any size.
@@ -817,16 +989,11 @@ class Pattern:
         `source` is a file path (memory-mapped) or a text; the corpus never
         needs to fit in device memory. `state_dir` checkpoints each chunk
         for a resume after an interruption; `progress(i, nc)` is called
-        after chunk i of nc (engine/stream.py). Returns (starts, ends,
-        pids) int64 arrays."""
-        from .engine import stream
-
+        after chunk i of nc (engine/stream.py; on the posnfa engine
+        engine/nfaset.py). Returns (starts, ends, pids) int64 arrays."""
         data = self._stream_source(source)
         with Timer() as t_all:
-            out = stream.stream_match_all(
-                self._dfa_tables(), data, state_dir=state_dir,
-                progress=progress, **self._stream_first_kw(chunk_bytes),
-            )
+            out = self._stream_all(data, chunk_bytes, state_dir, progress)
         self._record("match_all_stream", len(data), len(out[0]), 0.0,
                      t_all.elapsed)
         return out
@@ -835,14 +1002,10 @@ class Pattern:
                                state_dir: Optional[str] = None,
                                progress=None) -> int:
         """The number of match_all_stream's matches (same arguments)."""
-        from .engine import stream
-
         data = self._stream_source(source)
         with Timer() as t_all:
-            cnt = stream.stream_match_count(
-                self._dfa_tables(), data, state_dir=state_dir,
-                progress=progress, **self._stream_first_kw(chunk_bytes),
-            )
+            cnt = len(self._stream_all(data, chunk_bytes, state_dir,
+                                       progress)[0])
         self._record("match_all_count_stream", len(data), cnt, 0.0,
                      t_all.elapsed)
         return cnt
@@ -853,15 +1016,22 @@ class Pattern:
         """MatchFirst over a corpus of any size with an early exit: work
         follows the distance to the first match (doubling windows), not
         the corpus size (engine/stream.py). With `corpus` (a DeviceCorpus
-        of the same text) the fused ladder slices its device text."""
+        of the same text) the fused ladder slices its device text. The
+        posnfa engine takes the first candidate of its chunked sweep."""
         from .engine import stream
 
         data = self._stream_source(source)
         with Timer() as t_all:
-            m = stream.stream_match_first(
-                self._dfa_tables(), data,
-                **self._first_kw_with_corpus(chunk_bytes, corpus),
-            )
+            if self._oracle:
+                m = self._oracle.match_first(self._oracle_bytes(data))
+            elif self.engine == "posnfa":
+                pos, end, _ = self._posnfa_candidates(data, chunk_bytes)
+                m = (int(pos[0]), int(end[0])) if len(pos) else None
+            else:
+                m = stream.stream_match_first(
+                    self._dfa_tables(), data,
+                    **self._first_kw_with_corpus(chunk_bytes, corpus),
+                )
         self._record("match_first_stream", len(data), int(m is not None),
                      0.0, t_all.elapsed)
         return None if m is None else (m[0], m[1])
@@ -873,10 +1043,15 @@ class Pattern:
 
         data = self._stream_source(source)
         with Timer() as t_all:
-            got = stream.stream_match_anywhere(
-                self._dfa_tables(), data,
-                **self._first_kw_with_corpus(chunk_bytes, corpus),
-            )
+            if self._oracle:
+                got = self._oracle.match_anywhere(self._oracle_bytes(data))
+            elif self.engine == "posnfa":
+                got = len(self._posnfa_candidates(data, chunk_bytes)[0]) > 0
+            else:
+                got = stream.stream_match_anywhere(
+                    self._dfa_tables(), data,
+                    **self._first_kw_with_corpus(chunk_bytes, corpus),
+                )
         self._record("match_anywhere_stream", len(data), int(got), 0.0,
                      t_all.elapsed)
         return got
@@ -885,14 +1060,22 @@ class Pattern:
                           chunk_bytes: int = 8 << 20) -> bool:
         """MatchFull over a corpus of any size, stopping as soon as the
         boundary-0 thread dies (the split kernels, as in the JAX
-        package)."""
+        package). The posnfa engine asks whether its chunked sweep has a
+        candidate at boundary 0 that ends at the corpus end."""
         from .engine import stream
 
         data = self._stream_source(source)
-        kw = self._stream_kw(chunk_bytes)
-        kw.pop("engine")
         with Timer() as t_all:
-            got = stream.stream_match_full(self._dfa_tables(), data, **kw)
+            if self._oracle:
+                got = self._oracle.match_full(self._oracle_bytes(data))
+            elif self.engine == "posnfa":
+                pos, end, _ = self._posnfa_candidates(data, chunk_bytes)
+                got = bool(len(pos) and pos[0] == 0 and end[0] == len(data))
+            else:
+                kw = self._stream_kw(chunk_bytes)
+                kw.pop("engine")
+                got = stream.stream_match_full(self._dfa_tables(), data,
+                                               **kw)
         self._record("match_full_stream", len(data), int(got), 0.0,
                      t_all.elapsed)
         return got

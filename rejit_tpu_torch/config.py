@@ -7,8 +7,8 @@ overrides and no global mutable state (SURVEY.md §5.6).
 
 The PyTorch port keeps the JAX package's `Config` field for field, so a
 user's `Config` means the same thing in both. The port reads `engine`
-(None, 'literal', 'classrun', 'classlit' or 'dfa'; 'oracle' and 'posnfa'
-are not served yet), `ignore_case`, `block_size` (the split pipeline's K),
+(None, 'literal', 'classrun', 'classlit', 'dfa', 'posnfa' or 'oracle'),
+`ignore_case`, `block_size` (the split pipeline's K),
 `use_ff`, `force_ff`, `max_nfa_states`, `max_dfa_states`, `schain_fused`,
 `fused_block`, `pallas` and `bitmask`:
 - `schain_fused` picks the DFA route: 'auto' takes the fused CUDA kernel
@@ -26,13 +26,19 @@ are not served yet), `ignore_case`, `block_size` (the split pipeline's K),
   on either device (their plain versions on the CPU); 'off' takes the
   torch-op routes (the L/I claim, torch.cummin/cummax);
 - `bitmask` ('auto' or 'off') lets overlap-free sets of at most 8
-  literals take the start-mask route of the literal engine.
+  literals take the start-mask route of the literal engine;
+- `first_window`: the first window of the early-exit ladder that
+  `match_first` / `match_anywhere` take for longer DFA texts;
+- the fallback chain's fields, as in the JAX package: `oracle_fallback`
+  ('off' keeps a DFA blowup a hard error), `posnfa` ('auto', 'on' forces
+  the posnfa engine, 'off' skips it in the chain), `max_pos_states`,
+  `posnfa_block` (the posnfa engine's K; None: 64 for one packed word of
+  positions, 128 for more) and `posnfa_chunk_bytes`.
 Every other field is accepted and has no effect in the port yet: the
 TPU-only knobs (`schain`, `schain_rolled`, `fused_chl`, `interpret`,
-`matmul`) and those of engines and paths that later port slices bring
-(`selection`, `oracle_fallback`, `posnfa`, `max_pos_states`,
-`posnfa_block`, `posnfa_chunk_bytes`, `disk_cache`, `first_window`,
-`device_select_threshold`, `print_tree`, `print_tables`, `mesh_axis`).
+`matmul`) and those of paths that later port slices bring (`selection`,
+`disk_cache`, `device_select_threshold`, `print_tree`, `print_tables`,
+`mesh_axis`).
 """
 from __future__ import annotations
 

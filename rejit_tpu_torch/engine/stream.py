@@ -124,11 +124,11 @@ def chunk_l_arrays_device_fused(
     return L, I, F, cand, G
 
 
-def _fingerprint(t: DFATables, source, n: int, chunk_bytes: int,
+def _fingerprint(tables_digest: bytes, source, n: int, chunk_bytes: int,
                  block: int) -> str:
-    h = hashlib.sha1()
-    for a in (t.class_of, t.next, t.accept, t.accept_eot, t.start_states):
-        h.update(np.ascontiguousarray(a).tobytes())
+    """The state directory's key: the tables (their digest), the sizes and
+    a sample of the corpus."""
+    h = hashlib.sha1(tables_digest)
     h.update(f"{n}:{chunk_bytes}:{block}".encode())
     # Corpus identity sample: head and tail KB, so a reused state_dir
     # against a different (or rewritten same-length) corpus restarts
@@ -138,6 +138,13 @@ def _fingerprint(t: DFATables, source, n: int, chunk_bytes: int,
     h.update(np.asarray(source[:1024], dtype=np.uint8).tobytes())
     h.update(np.asarray(source[max(0, n - 1024):n], dtype=np.uint8).tobytes())
     return h.hexdigest()
+
+
+def _tables_digest(t: DFATables) -> bytes:
+    h = hashlib.sha1()
+    for a in (t.class_of, t.next, t.accept, t.accept_eot, t.start_states):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.digest()
 
 
 class _State:
@@ -277,7 +284,6 @@ def stream_candidates(
     chunk_bytes must be a positive multiple of `block` (the fused route's
     K for 'fused', the split route's for 'split'). `progress(i, nc)` is
     called after chunk i of nc is saved."""
-    global RETRIES
     if engine not in ("split", "fused"):
         raise ValueError(f"unknown chunk engine {engine!r}")
     if chunk_bytes <= 0 or chunk_bytes % block:
@@ -292,7 +298,8 @@ def stream_candidates(
     n = len(source)
     C = chunk_bytes
     nc = max(1, -(-n // C))   # the last chunk holds the EOT boundary
-    state = _State(state_dir, _fingerprint(tables, source, n, C, block))
+    state = _State(state_dir, _fingerprint(_tables_digest(tables), source,
+                                           n, C, block))
 
     # The tail in GLOBAL int64 coordinates (host side).
     eot_tail = (
@@ -300,6 +307,33 @@ def stream_candidates(
         np.where(np.asarray(tables.accept_eot) >= 0, np.int64(n), -1),
         np.asarray(tables.accept_eot, dtype=np.int64),
     )
+
+    def run_chunk(i: int, tail_global):
+        a = i * C
+        b = min(n, a + C)
+        n_local = b - a
+        last = i == nc - 1
+        P = (n_local // block + 1) * block if last else C
+        fs = _first_start_at(tables, source, a)
+        buf = _upload(source, a, b, P, dev)
+        if engine == "fused":
+            return _fused_chunk(ct, buf, n_local, a, tail_global, fs, block,
+                                use_ff, last)
+        return _split_chunk(ct, buf, n_local, a, tail_global, fs, block)
+
+    return _sweep_chunks(state, nc, eot_tail, run_chunk, retries=retries,
+                         progress=progress)
+
+
+def _sweep_chunks(state: _State, nc: int, eot_tail, run_chunk, *,
+                  retries: int, progress):
+    """Run chunks nc-1 .. 0 from the end of the corpus (or from where
+    `state` says a killed run stopped): `run_chunk(i, tail)` gives the
+    chunk's global (pos, end, pid) and the tail for chunk i-1. A chunk
+    that raises runs again, up to `retries` times in all (each rerun
+    counted in RETRIES). Each chunk's candidates and tail are saved before
+    `progress(i, nc)`. Returns the candidates of all chunks."""
+    global RETRIES
     tail_global = eot_tail
     start_chunk = nc - 1
     resumed = state.load()
@@ -314,22 +348,10 @@ def stream_candidates(
                 start_chunk, tail_global = nc - 1, eot_tail
 
     for i in range(start_chunk, -1, -1):
-        a = i * C
-        b = min(n, a + C)
-        n_local = b - a
-        last = i == nc - 1
-        P = (n_local // block + 1) * block if last else C
-        fs = _first_start_at(tables, source, a)
         err = None
         for attempt in range(retries):
             try:
-                buf = _upload(source, a, b, P, dev)
-                if engine == "fused":
-                    out = _fused_chunk(ct, buf, n_local, a, tail_global, fs,
-                                       block, use_ff, last)
-                else:
-                    out = _split_chunk(ct, buf, n_local, a, tail_global, fs,
-                                       block)
+                out = run_chunk(i, tail_global)
                 break
             except Exception as e:
                 err = e
@@ -358,10 +380,6 @@ def stream_match_all(
     `source` (keywords of stream_candidates)."""
     return select.match_all_candidates(*stream_candidates(tables, source,
                                                           **kw))
-
-
-def stream_match_count(tables: DFATables, source, **kw) -> int:
-    return len(stream_match_all(tables, source, **kw)[0])
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,8 @@ from typing import Dict, List
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "_build")
-SOURCES = ("dfa_phases", "schain_fused", "literal_spans", "scan1d")
+SOURCES = ("dfa_phases", "schain_fused", "literal_spans", "scan1d",
+           "gather_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

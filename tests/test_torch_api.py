@@ -139,15 +139,27 @@ def test_use_ff_off_and_force_give_the_same_spans():
 
 
 def test_unported_engines_and_blowups_raise():
+    """The engines and the blowup that raised before the fallback chain was
+    ported: engine='oracle' and 'posnfa' now run as in rejit_tpu, and the
+    default-Config blowup lands on posnfa; an unknown engine still raises."""
     for eng in ("oracle", "posnfa"):
-        with pytest.raises(CompileError, match="not ported"):
-            rt.Pattern("a", rt.Config(engine=eng), device="cpu")
+        p = rt.Pattern("a", rt.Config(engine=eng), device="cpu")
+        j = rejit_tpu.Pattern("a", rejit_tpu.Config(engine=eng))
+        assert p.engine == j.engine == eng
+        assert p.tokenize(b"aba") == j.tokenize(b"aba") == [(0, 1, 0),
+                                                           (2, 3, 0)]
     assert rt.Pattern("a", rt.Config(engine="literal"),
                       device="cpu").match_all(b"aba") == [(0, 1), (2, 3)]
     with pytest.raises(CompileError, match="unknown engine"):
         rt.Pattern("a", rt.Config(engine="nope"), device="cpu")
-    with pytest.raises(StateBlowupError, match="not ported"):
-        rt.Pattern(rb"(a|b)*a(a|b){14}", device="cpu")
+    with pytest.warns(RuntimeWarning, match="position-NFA"):
+        p = rt.Pattern(rb"(a|b)*a(a|b){14}", device="cpu")
+    with pytest.warns(RuntimeWarning, match="position-NFA"):
+        j = rejit_tpu.Pattern(rb"(a|b)*a(a|b){14}")
+    assert p.engine == j.engine == "posnfa"
+    with pytest.raises(StateBlowupError):
+        rt.Pattern(rb"(a|b)*a(a|b){14}", rt.Config(engine="dfa"),
+                   device="cpu")
 
 
 @pytest.mark.parametrize("overlap", [False, True], ids=["disjoint", "overlap"])

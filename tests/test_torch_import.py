@@ -18,7 +18,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax|from\s+jax[\s.]|import\s+rejit_tpu(?!_torch)"
-    r"|from\s+rejit_tpu(?!_torch)[\s.])"
+    r"|from\s+rejit_tpu(?!_torch)[\s.]|import\s+bench\b|from\s+bench[\s.])"
     r"|\brejit_tpu\.[A-Za-z]",
     re.M,
 )
@@ -35,9 +35,15 @@ def test_import_loads_no_jax_and_no_rejit_tpu():
         "import rejit_tpu_torch.kernels.scan_cuda\n"
         "import rejit_tpu_torch.kernels.classlit\n"
         "import rejit_tpu_torch.engine.stream\n"
+        "import rejit_tpu_torch.oracle\n"
+        "import rejit_tpu_torch.compile.posnfa\n"
+        "import rejit_tpu_torch.engine.nfaset\n"
+        "import rejit_tpu_torch.kernels.probe_cuda\n"
+        "import rejit_tpu_torch.probes.gather_probe\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib') "
-        "or m == 'rejit_tpu' or m.startswith('rejit_tpu.'))\n"
+        "or m == 'rejit_tpu' or m.startswith('rejit_tpu.') "
+        "or m == 'bench' or m.startswith('bench.'))\n"
         "print(','.join(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -68,10 +74,12 @@ def test_no_source_names_jax_or_rejit_tpu():
 
 def test_forbidden_pattern_catches_imports():
     for line in ("import jax", "from jax import numpy", "import rejit_tpu",
-                 "from rejit_tpu.compile import ir", "x = rejit_tpu.Pattern"):
+                 "from rejit_tpu.compile import ir", "x = rejit_tpu.Pattern",
+                 "from bench.harness import tchain", "import bench.corpus"):
         assert _FORBIDDEN.search(line), line
     for line in ("import rejit_tpu_torch", "from rejit_tpu_torch import api",
                  "see rejit_tpu/kernels/dfa_pallas.py",
+                 "see bench/gather_probe.py", "import benchmarks_of_mine",
                  "Error types for rejit_tpu."):
         assert not _FORBIDDEN.search(line), line
 

@@ -17,6 +17,7 @@ Every value is a position, state, id or flag: the tolerance is exact
 equality. JAX references are cached at module level.
 """
 import dataclasses
+import warnings
 import json
 import os
 
@@ -521,5 +522,23 @@ def test_blowup_retries_at_four_times_the_budget():
     with pytest.raises(StateBlowupError):
         rt.Pattern(BLOWUP, rt.Config(max_dfa_states=64,
                                      oracle_fallback="off"), device="cpu")
-    with pytest.raises(StateBlowupError, match="not ported"):
-        rt.Pattern(BLOWUP, rt.Config(max_dfa_states=16), device="cpu")
+    # A second blowup (64 states at 4x) takes the next step of the chain,
+    # the posnfa engine, as rejit_tpu does.
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        p16 = rt.Pattern(BLOWUP, rt.Config(max_dfa_states=16), device="cpu")
+    assert any("position-NFA" in str(x.message) for x in w)
+    j16 = _jax(("blowup16",), lambda: (lambda j: (j.engine, {
+        op: getattr(j, op)(text) for op in (
+            "match_all", "tokenize", "match_first", "match_anywhere",
+            "match_full", "match_all_count")}))(_quiet_jax(BLOWUP, 16)))
+    assert (p16.engine, {op: getattr(p16, op)(text) for op in j16[1]}) \
+        == j16
+    assert j16[0] == "posnfa"
+
+
+def _quiet_jax(pat, max_dfa_states):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return rejit_tpu.Pattern(pat, rejit_tpu.Config(
+            max_dfa_states=max_dfa_states))
