@@ -107,7 +107,26 @@ per source, all started together), then:
    forced engine and a `posnfa='off'` blowup) on 2 KB equal to `re`;
    outside --quick the walls, per-chunk device ms, peak memory and the
    byte bound;
-11. times the kernels, their plain versions, the library calls, the split
+11. runs regex-dna (`replace_phase`; samples/regexdna.py's steps) at the
+   Benchmarks Game's size, 50,000,000 bases (~50.8 MB of FASTA): the
+   native helpers must load (built with g++ at first use); the header
+   strip (`replace` of `(>[^\\n]*\\n)|\\n`, a DFA) must launch schain_fused
+   and nothing else, the nine `(?i)` variant counts on the staged result
+   no kernel, the 11-code IUB `replace_each` (22 single-byte literals)
+   literal_spans and nothing else; the three outputs equal Python `re`
+   byte for byte, a 1 MB prefix equal to the port's CPU run and to
+   `Config(selection='python')` on the card; replace_first and split
+   (with and without maxsplit) on the 10 MB config-3 text equal to `re`;
+   outside --quick each step's wall (median of 3) and its last_stats
+   device / selection split, and the strip with the Python selection;
+   then device-side selection (`select_phase`): `\\b\\w{3,50}\\b` (classrun)
+   and `\\w+\\s` (DFA, overlapping candidates) over config 3 at 10 MB and
+   256 MiB (10 MB only under --quick), from host bytes and staged, with
+   the default threshold (the native greedy walk) and
+   `Config(device_select_threshold=0)` (pointer doubling): equal arrays,
+   equal to `re` at 10 MB, each with its candidates, cap bucket, rounds,
+   peak device memory and (outside --quick) wall;
+12. times the kernels, their plain versions, the library calls, the split
    route's stages and the entry points' walls (host bytes and staged
    corpus) with CUDA events and the host clock, on the 10 MB text and on
    a 256 MiB text from the same generator, and config 1 at 10 MiB and
@@ -201,6 +220,29 @@ PROBE_CHECK_ITERS = 37
 # 32-bit shared-memory loads an H100 SM issues a clock (128 B/clk): a
 # quarter of its 128 integer lanes, so a quarter of the lane rate.
 SMEM_LOADS_PER_S = PEAK_LANE_OPS_PER_S / 4
+# regex-dna (samples/regexdna.py) at the Benchmarks Game's input size
+# (fasta N = 5,000,000: 50,000,000 bases, ~50.8 MB): strip the headers and
+# newlines, count nine variants, replace the 11 IUB codes.
+DNA_BASES = 50_000_000
+DNA_CHECK = 1 << 20   # the prefix held against the CPU and 'python' runs
+DNA_STRIP = rb"(>[^\n]*\n)|\n"
+DNA_VARIANTS = (
+    "agggtaaa|tttaccct", "[cgt]gggtaaa|tttaccc[acg]",
+    "a[act]ggtaaa|tttacc[agt]t", "ag[act]gtaaa|tttac[agt]ct",
+    "agg[act]taaa|ttta[agt]cct", "aggg[acg]aaa|ttt[cgt]ccct",
+    "agggt[cgt]aa|tt[acg]accct", "agggta[cgt]a|t[acg]taccct",
+    "agggtaa[cgt]|[acg]ttaccct",
+)
+DNA_IUB = (("B", b"(c|g|t)"), ("D", b"(a|g|t)"), ("H", b"(a|c|t)"),
+           ("K", b"(g|t)"), ("M", b"(a|c)"), ("N", b"(a|c|g|t)"),
+           ("R", b"(a|g)"), ("S", b"(c|g)"), ("V", b"(a|c|g)"),
+           ("W", b"(a|t)"), ("Y", b"(c|t)"))
+# Device against host selection: a class run (not a run partition) and a
+# DFA whose candidates overlap (every word byte starts one), over config 3.
+SELECT_PATTERNS = {"classrun": rb"\b\w{3,50}\b", "dfa": rb"\w+\s"}
+SELECT_SIZES = (10_000_000, 256 << 20)
+# The one kernel each select case's engine launches a call.
+SELECT_KERNEL = {"classrun": "scan1d", "dfa": "schain_fused"}
 
 
 START = time.perf_counter()
@@ -799,7 +841,7 @@ def time_size(rt, text: bytes, label: str, reps: int,
     check(p.last_stats.n_candidates == len(out[0]),
           f"candidates {p.last_stats.n_candidates} != matches {len(out[0])}")
     t0 = time.perf_counter()
-    sel = select.match_all_candidates(*out)
+    sel = select.match_all_candidates(*out, native=True)
     res["select_shortcut_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     loop = select.greedy(*out)
@@ -860,16 +902,21 @@ def literal_text(rng, sets, size: int) -> np.ndarray:
     return text
 
 
-def literal_spans_vs_plain(xc, text: np.ndarray, sets) -> dict:
+def literal_spans_vs_plain(xc, text: np.ndarray, sets, caps=(0, 2, 4, 16),
+                           max_len: int = 0) -> dict:
     """Max |literal_spans - literal_spans_plain| (keys and counts) on the
-    same CUDA rows, at caps 0, 2, 4 and 16, n at P, P-3, a row edge, a
-    block edge (32 rows), 1 and 0."""
-    rows = torch.from_numpy(xc.pad_rows(text, len(text), xc.CHL)).to(DEV)
+    same CUDA rows (padded as `pad_rows` pads for `max_len`, default a
+    row), at each cap, n at the text's length, P, P-3, a row edge, a block
+    edge (32 rows), 1 and 0."""
+    rows = torch.from_numpy(xc.pad_rows(text, len(text),
+                                        max_len or xc.CHL)).to(DEV)
     P = rows.numel()
     err, calls, max_count = 0, 0, 0
+    ns = dict.fromkeys((len(text), P, P - 3, 777 * xc.CHL,
+                        13 * 32 * xc.CHL, 1, 0))
     for lits, pids in sets:
-        for cap in (0, 2, 4, 16):
-            for n in (P, P - 3, 777 * xc.CHL, 13 * 32 * xc.CHL, 1, 0):
+        for cap in caps:
+            for n in ns:
                 want = xc.literal_spans_plain(rows, n, lits=lits, pids=pids,
                                               cap=cap)
                 got = xc.literal_spans(rows, n, lits=lits, pids=pids,
@@ -878,7 +925,7 @@ def literal_spans_vs_plain(xc, text: np.ndarray, sets) -> dict:
                 calls += 1
                 max_count = max(max_count, int(want[1].max()))
     torch.cuda.synchronize()
-    return {"max_abs_err": err, "calls": calls, "P": P,
+    return {"max_abs_err": err, "calls": calls, "P": P, "caps": list(caps),
             "max_row_count": max_count}
 
 
@@ -1401,11 +1448,21 @@ def gather_probe_phase(reset, launches, quick: bool) -> dict:
     sel_ops = 2 * d["u"] * iters * d["qs"] * sel["replicas"] * 1024
     res["serial_bound_ms"] = lookups / SMEM_LOADS_PER_S * 1e3
     res["select_bound_ms"] = sel_ops / PEAK_LANE_OPS_PER_S * 1e3
+    # The serial bound for the probe's own inputs: a warp's lookup takes
+    # as many shared-memory wavefronts as its busiest bank has distinct
+    # addresses, counted exactly along the chains. The compares and
+    # selects issue on an SM's 64 int32 lanes if not on all 128: the
+    # select bound on 64 lanes beside the 128-lane one.
+    waves = gp.busiest_bank_wavefronts(d["u"], iters)
+    res["serial_wavefronts_per_lookup"] = waves
+    res["serial_bound_probe_inputs_ms"] = res["serial_bound_ms"] * waves
+    res["select_bound_64_lanes_ms"] = 2 * res["select_bound_ms"]
     if not quick:
         # The same serial chain with identity table rows and each chain at
         # its lane's own index: a warp's 32 loads hit 32 banks. Against
-        # the random permutation (about 3.5 loads a bank on the busiest
-        # bank of a warp), this reads what bank conflicts cost a lookup.
+        # the random permutation (`serial_wavefronts_per_lookup` on the
+        # busiest bank of a warp), this reads what bank conflicts cost a
+        # lookup.
         ident = torch.arange(128, dtype=torch.int32, device=DEV).repeat(
             8 * d["u"], 1)
         ti = ident[:8].contiguous()
@@ -1425,6 +1482,12 @@ def gather_probe_phase(reset, launches, quick: bool) -> dict:
             bound_ms=res["serial_bound_ms"], bound_by="operations")
         res["select_ms"] = sel["sec_per_call"] * 1e3
         res["serial_plain_ms"] = row["plain_ms"]
+        for key in ("serial_bound_ms", "serial_bound_probe_inputs_ms"):
+            res[key.replace("bound", "share_of_bound")] = (
+                res[key] / row["ms"])
+        for key in ("select_bound_ms", "select_bound_64_lanes_ms"):
+            res[key.replace("bound", "share_of_bound")] = (
+                res[key] / res["select_ms"])
     emit(res)
     return row
 
@@ -1583,6 +1646,235 @@ def posnfa_launches(pt, K: int, chunk: int) -> dict:
         return {"device_ops": kernels, "device_ms": ms, "top": top[:8]}
     except Exception as exc:  # the measurement only
         return {"error": repr(exc)}
+
+
+def regexdna_steps(rt, data: bytes, device, config=None) -> dict:
+    """The sample's three steps on `device`: the stripped text, the nine
+    counts and the IUB-replaced text, with each step's Pattern."""
+    cfg = config or rt.Config()
+    strip = rt.Pattern(DNA_STRIP, cfg, device=device)
+    stripped = strip.replace(data, b"")
+    nine = rt.Pattern(["(?i)" + v for v in DNA_VARIANTS], cfg, device=device)
+    counts = nine.match_all_count_each(rt.stage(stripped, device)).tolist()
+    iub = rt.Pattern([f"[{c}{c.lower()}]" for c, _ in DNA_IUB], cfg,
+                     device=device)
+    seq = iub.replace_each(stripped, [r for _, r in DNA_IUB])
+    return {"stripped": stripped, "counts": counts, "seq": seq,
+            "patterns": (strip, nine, iub)}
+
+
+def stats_split(st) -> dict:
+    """A last_stats' device / selection split, totals and counts."""
+    return {"device_s": st.device_time_s, "select_s": st.select_time_s,
+            "total_s": st.total_time_s, "candidates": st.n_candidates,
+            "matches": st.n_matches, "op": st.op, "engine": st.engine}
+
+
+def replace_phase(rt, main_text: bytes, reset, launches, only,
+                  quick: bool) -> dict:
+    """regex-dna at its published size through the port's Replace path:
+    strip (`replace`, a DFA on the fused route: schain_fused), the nine
+    variant counts on the staged result (`match_all_count_each`, the
+    literal engine's torch ops), the IUB pass (`replace_each`, 22
+    single-byte literals: literal_spans). Each step's launches, its output
+    held byte for byte against Python `re`, a 1 MB prefix against the
+    port's CPU run and `Config(selection='python')` on the card;
+    replace_first and split (with and without maxsplit) on config 3's
+    10 MB text against `re`. The strip's schain_fused and the IUB pass's
+    literal_spans are held against their plain versions at the shapes
+    this path gives them. Outside --quick each step's wall (median of 3)
+    with its last_stats split. Returns the launches and the kernels'
+    max_abs_err, by kernel."""
+    from rejit_tpu_torch.kernels import extract_cuda as xc
+    from rejit_tpu_torch.native import build as nbuild
+    from rejit_tpu_torch.native import lib as nlib
+    from rejit_tpu_torch.utils.corpus import make_fasta
+
+    t0 = time.perf_counter()
+    nlib.load()   # raises if the native helpers do not build
+    native_s = time.perf_counter() - t0
+    data = make_fasta(DNA_BASES)
+    res = {"bases": DNA_BASES, "input_bytes": len(data),
+           "native_library": os.path.basename(nbuild.lib_path()),
+           "native_load_s": native_s}
+    strip = rt.Pattern(DNA_STRIP, device=DEV)
+    check(strip.engine == "dfa" and strip.fused and strip._use_native(),
+          "strip pattern: not the fused route with the native helpers")
+    reset()
+    stripped = strip.replace(data, b"")
+    steps = {"strip": {"launches": launches(),
+                       "stats": stats_split(strip.last_stats)}}
+    staged = rt.stage(stripped, DEV)
+    nine = rt.Pattern(["(?i)" + v for v in DNA_VARIANTS], device=DEV)
+    reset()
+    counts = nine.match_all_count_each(staged).tolist()
+    steps["counts"] = {"launches": launches(),
+                       "stats": stats_split(nine.last_stats)}
+    iub = rt.Pattern([f"[{c}{c.lower()}]" for c, _ in DNA_IUB], device=DEV)
+    check(iub.engine == "literal" and not iub._bitmask_ok()
+          and iub._spans_kernel_ok(None), "IUB pattern: not literal_spans")
+    reps = [r for _, r in DNA_IUB]
+    reset()
+    seq = iub.replace_each(stripped, reps)
+    steps["iub"] = {"launches": launches(),
+                    "stats": stats_split(iub.last_stats)}
+    ls = steps["strip"]["launches"]["schain_fused"]
+    li = steps["iub"]["launches"]["literal_spans"]
+    check(ls >= 1 and only(steps["strip"]["launches"], schain_fused=ls),
+          f"strip launches: {steps['strip']['launches']}")
+    check(only(steps["counts"]["launches"]),
+          f"counts launches: {steps['counts']['launches']}")
+    check(li >= 1 and only(steps["iub"]["launches"], literal_spans=li),
+          f"IUB launches: {steps['iub']['launches']}")
+    # Python re, byte for byte.
+    want_strip = re.sub(DNA_STRIP, b"", data)
+    check(stripped == want_strip, "stripped text differs from re.sub")
+    want_counts = [len(re.findall(v.encode(), stripped, re.I))
+                   for v in DNA_VARIANTS]
+    check(counts == want_counts, f"counts {counts} != re {want_counts}")
+    want_seq = stripped
+    for c, r in DNA_IUB:
+        want_seq = re.sub(f"[{c}{c.lower()}]".encode(), r, want_seq)
+    check(seq == want_seq, "IUB text differs from re.sub")
+    del want_strip, want_seq
+    res.update(lengths=[len(data), len(stripped), len(seq)],
+               counts=dict(zip(DNA_VARIANTS, counts)), equal_to_re=True)
+    # The two kernels at this path's shapes, against their plain versions:
+    # the strip's padded 50.8 MB text and tables (one pattern: mode 'l',
+    # the solo seed), and the stripped text's rows with the IUB literals
+    # at the caps the path took (4, then 4·2^k up to the busiest row).
+    check(strip.ct.n_patterns == 1, "strip pattern: more than one pid")
+    u8 = np.frombuffer(data, np.uint8)
+    fe = fused_vs_plain(strip.ct,
+                        strip._padded_text(u8, None, strip.fused_block),
+                        (len(data),), modes=("l",), seeds=("solo",),
+                        block=strip.fused_block)
+    del u8
+    sets = [(iub.info.literals, iub.info.literal_pids)]
+    ml = max(len(x) for x in iub.info.literals)
+    s8 = np.frombuffer(stripped, np.uint8)
+    le = literal_spans_vs_plain(xc, s8, sets, caps=(0, 4), max_len=ml)
+    cap = 4
+    while cap < le["max_row_count"]:
+        cap *= 2
+    check(li == 1 + (cap > 4), f"IUB pass: {li} launches for cap {cap}")
+    le2 = literal_spans_vs_plain(xc, s8, sets, caps=(cap,), max_len=ml)
+    del s8
+    errs = {"schain_fused": fe["max_abs_err"],
+            "literal_spans": max(le["max_abs_err"], le2["max_abs_err"])}
+    res["kernels_vs_plain"] = {
+        "schain_fused": {k: fe[k] for k in ("max_abs_err", "calls",
+                                            "instances")},
+        "literal_spans": {"max_abs_err": errs["literal_spans"],
+                          "calls": le["calls"] + le2["calls"],
+                          "P": le["P"], "caps": le["caps"] + le2["caps"],
+                          "max_row_count": le["max_row_count"]}}
+    # A prefix: the card, the port's CPU run and selection='python' agree.
+    pre = data[:DNA_CHECK]
+    card = regexdna_steps(rt, pre, DEV)
+    for other in (regexdna_steps(rt, pre, "cpu"),
+                  regexdna_steps(rt, pre, DEV, rt.Config(selection="python"))):
+        check(all(card[k] == other[k] for k in ("stripped", "counts", "seq")),
+              "regex-dna prefix: card, CPU and selection='python' differ")
+    res["prefix"] = {"bytes": len(pre), "counts": card["counts"],
+                     "equal_to_cpu_and_python_selection": True}
+    # replace_first and split on config 3's 10 MB text.
+    p = rt.Pattern(MAIN_PATTERN, device=DEV)
+    check(p.replace_first(main_text, b"X") == re.sub(
+        MAIN_PATTERN, b"X", main_text, count=1), "replace_first differs")
+    for ms in (0, 5):
+        parts = p.split(main_text, maxsplit=ms)
+        check(parts == re.split(MAIN_PATTERN, main_text, maxsplit=ms),
+              f"split(maxsplit={ms}) differs from re.split")
+    res["config3_replace_first_and_split_equal_to_re"] = True
+    res["config3_split_pieces"] = len(p.split(main_text))
+    if not quick:
+        walls = {
+            "strip": (strip, lambda: strip.replace(data, b"")),
+            "counts": (nine, lambda: nine.match_all_count_each(staged)),
+            "iub": (iub, lambda: iub.replace_each(stripped, reps)),
+        }
+        for step, (pat, fn) in walls.items():
+            steps[step]["wall"] = wall_s(fn, 3)
+            steps[step]["stats_last_call"] = stats_split(pat.last_stats)
+        res["all_three_wall_s"] = sum(steps[k]["wall"]["median_s"]
+                                      for k in walls)
+        res["input_bytes_per_s"] = len(data) / res["all_three_wall_s"]
+        py = rt.Pattern(DNA_STRIP, rt.Config(selection="python"),
+                        device=DEV)
+        steps["strip_python_selection"] = {
+            "wall": wall_s(lambda: py.replace(data, b""), 3),
+            "stats": stats_split(py.last_stats)}
+    res["steps"] = steps
+    emit({"phase": "replace", **res})
+    return {"schain_fused": ls, "literal_spans": li}, errs
+
+
+def select_phase(rt, reset, launches, only, quick: bool) -> dict:
+    """Device-side selection (Config(device_select_threshold=0): pointer
+    doubling, engine/select_device.py) against the host walk (the default:
+    the native greedy) for a class run and an overlapping DFA over config
+    3 at 10 MB and 256 MiB, from host bytes and staged: equal arrays,
+    equal to `re` at 10 MB; the wall, select_time_s, candidates, cap
+    bucket, doubling rounds and peak device memory of each. Every call
+    launches its engine's kernel once (scan1d for the class run,
+    schain_fused for the DFA) and nothing else: the doubling is torch
+    ops. Returns the launches of the first call of each case, by
+    kernel."""
+    from rejit_tpu_torch.engine import select_device as sd
+    from rejit_tpu_torch.utils.corpus import make_corpus
+
+    sizes = SELECT_SIZES[:1] if quick else SELECT_SIZES
+    total = {}
+    for size in sizes:
+        text = make_corpus(size, seed=2, needle=b"matching", density=0.01)
+        corpus = rt.stage(text, DEV)
+        for name, pat in SELECT_PATTERNS.items():
+            host = rt.Pattern(pat, device=DEV)
+            dev = rt.Pattern(pat, rt.Config(device_select_threshold=0),
+                             device=DEV)
+            check(host.engine == dev.engine == name, f"{pat!r} engine")
+            want = re_spans(pat, text) if size <= 10_000_000 else None
+            row = {"pattern": pat.decode(), "engine": name, "n": size}
+            outs = {}
+            for src, arg in (("host_bytes", text), ("staged", corpus)):
+                for label, p in (("host_select", host),
+                                 ("device_select", dev)):
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    reset()
+                    out = p.match_all_arrays(arg)
+                    torch.cuda.synchronize()
+                    st = p.last_stats
+                    got = launches()
+                    check(only(got, **{SELECT_KERNEL[name]: 1}),
+                          f"{pat!r} at {size}, {src}, {label}: {got}")
+                    for k, v in got.items():
+                        total[k] = total.get(k, 0) + v
+                    r = {**stats_split(st), "launches": got,
+                         "peak_device_bytes":
+                             torch.cuda.max_memory_allocated() - base}
+                    if label == "device_select":
+                        cap = sd._bucket(st.n_candidates)
+                        r.update(cap=cap, rounds=sd._rounds(cap))
+                    if not quick:
+                        r["wall"] = wall_s(lambda: p.match_all_arrays(arg),
+                                           3)
+                        r["select_s_last_call"] = p.last_stats.select_time_s
+                    row[f"{src}_{label}"] = r
+                    outs[(src, label)] = out
+            first = outs[("host_bytes", "host_select")]
+            check(all(same_arrays(o, first) for o in outs.values()),
+                  f"{pat!r} at {size}: device and host selection differ")
+            if want is not None:
+                check(spans_of(first) == want, f"{pat!r}: spans differ "
+                      "from re")
+            row.update(matches=len(first[0]), equal=True,
+                       equal_to_re=want is not None)
+            emit({"phase": "select", **row})
+        del corpus, text
+    return total
 
 
 def main() -> int:
@@ -2031,7 +2323,18 @@ def main() -> int:
     # package's posnfa workload (10 MB), and the oracle route.
     posnfa = posnfa_phase(rt, reset, launches, only, quick)
 
-    # 11. Times at 10 MB and 256 MiB.
+    # 11. regex-dna at its published size through the Replace path, and
+    # device-side selection against the host walk.
+    dna_launches, dna_errs = replace_phase(rt, main_text, reset, launches,
+                                           only, quick)
+    for k, v in dna_errs.items():
+        errs[k] = max(errs[k], v)
+    check(all(v == 0 for v in dna_errs.values()),
+          f"kernels differ from their plain versions at the regex-dna "
+          f"path's shapes: {dna_errs}")
+    sel_launches = select_phase(rt, reset, launches, only, quick)
+
+    # 12. Times at 10 MB and 256 MiB.
     times = {}
     if not quick:
         t10, _ = time_size(rt, main_text, "10MB", reps=20, wall_reps=10)
@@ -2097,6 +2400,11 @@ def main() -> int:
             "bound_ms": times.get(name + "_bound_ms"),
             "bound_by": times.get(name + "_bound_by"),
             "library_ms": times.get(name + "_library_ms"),
+            # the regex-dna Replace path's own run (strip, counts, IUB),
+            # and the select phase's calls (each case, each source and
+            # selection path, the first call)
+            "launches_replace_path": dna_launches.get(name, 0),
+            "launches_select_path": sel_launches.get(name, 0),
         }
         kernels.append(row)
     emit({"kernels": kernels})

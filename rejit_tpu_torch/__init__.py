@@ -1,7 +1,8 @@
 """rejit_tpu_torch: the PyTorch / CUDA port of rejit_tpu.
 
 The same public surface as rejit_tpu (MatchFull/MatchAnywhere/MatchFirst/
-MatchAll/MatchAllCount, tokenize, reusable compiled patterns, `Config`),
+MatchAll/MatchAllCount, tokenize, Replace/ReplaceFirst/replace_each/split,
+reusable compiled patterns, `Config`),
 with the same results (docs/SEMANTICS.md), running on an NVIDIA card:
 patterns compile ahead of time to dense DFA tables, and matching runs as
 one fused hand-written CUDA kernel (or, for tables it does not take, PyTorch
@@ -20,12 +21,20 @@ from .api import (  # noqa: F401
     MatchFull,
     Pattern,
     Regej,
+    Replace,
+    ReplaceAll,
+    ReplaceFirst,
     compile,
     match_all,
     match_all_count,
     match_anywhere,
     match_first,
     match_full,
+    replace,
+    replace_all,
+    replace_each,
+    replace_first,
+    split,
     stage,
 )
 from .config import Config  # noqa: F401

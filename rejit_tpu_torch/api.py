@@ -52,6 +52,13 @@ takes the DeviceCorpus in place of a text (the posnfa and oracle engines
 read its host bytes, as in the JAX package). Entry points run on the card
 unless the caller passes `device="cpu"`; with no CUDA device present they
 raise rather than carry on quietly on the CPU.
+
+Selection and Replace run on the host: MatchAll's greedy non-overlap walk
+over the compacted candidates and the replacement splices of `replace` /
+`replace_each` take the native helpers (native/, compiled with g++ at first
+use) unless `Config.selection='python'`; above
+`Config.device_select_threshold` candidates MatchAll selects on the device
+instead (engine/select_device.py, pointer doubling as torch ops).
 """
 from __future__ import annotations
 
@@ -67,9 +74,10 @@ from .compile import analysis, ir, parser
 from .compile.dfa import compile_patterns
 from .compile.posnfa import compile_posnfa
 from .config import DEFAULT, Config
-from .engine import nfaset, pipeline, select, spans
+from .engine import nfaset, pipeline, select, select_device, spans
 from .errors import CompileError, StateBlowupError
 from .kernels import classlit, classrun, extract_cuda, literal, schain_cuda
+from .native import lib as native_lib
 from .oracle import OraclePattern
 from .utils.stats import MatchStats, Timer
 
@@ -292,6 +300,9 @@ class Pattern:
                 for p in self.source
             )
         self.irs = [parser.parse(p) for p in self.source]
+        if config.print_tree:
+            for p, node in zip(self.source, self.irs):
+                print(f"--- {p!r}\n{ir.format_tree(node)}")
         self.info = analysis.analyze(self.irs)
         self.engine = choose_engine(self.irs, self.info, config, self.device)
         self.tables = None
@@ -323,10 +334,14 @@ class Pattern:
             )
         if self.engine == "dfa":
             try:
-                self.tables = self._compile_tables()
+                self.tables = self._compile_tables_cached()
             except StateBlowupError as err:
                 self.tables = self._blowup_fallback(err)
             if self.tables is not None:
+                if config.print_tables:
+                    from .compile import debug
+
+                    print(debug.format_tables(self.tables))
                 self.ct = pipeline.device_tables(self.tables,
                                                  device=self.device)
                 self.fused = self._use_schain_fused()
@@ -340,6 +355,34 @@ class Pattern:
             max_nfa_states=cfg.max_nfa_states * scale,
             max_dfa_states=cfg.max_dfa_states * scale,
         )
+
+    def _compile_tables_cached(self):
+        """The DFA tables, from the disk cache when `Config.disk_cache` is
+        set (engine/cache.py; a miss compiles and stores them)."""
+        cfg = self.config
+        if not cfg.disk_cache:
+            return self._compile_tables()
+        from .engine import cache
+
+        limits = (self.source, cfg.max_nfa_states, cfg.max_dfa_states)
+        tables = cache.load_cached(*limits)
+        if tables is None:
+            tables = self._compile_tables()
+            cache.store_cached(*limits, tables)
+        return tables
+
+    def _use_native(self) -> bool:
+        """Whether host selection and the replacement splices take the
+        native helpers (Config.selection): 'python' never loads them,
+        'native' requires them (raises if they cannot be built), 'auto'
+        takes them where they build."""
+        mode = self.config.selection
+        if mode == "python":
+            return False
+        if mode == "native":
+            native_lib.load()
+            return True
+        return native_lib.available()
 
     def _blowup_fallback(self, err: StateBlowupError):
         """The JAX package's fallback chain: a supported pattern never
@@ -620,6 +663,30 @@ class Pattern:
                 prev_end = s + w
         return cnt
 
+    def matches_may_contain_byte(self, b: int) -> bool:
+        """Conservative containment test: False only when no match of this
+        pattern can CONSUME byte `b` (assertions such as ^ $ \\b may still
+        read it as context). Texts joined by a separator byte the pattern
+        cannot consume give exactly the per-text matches in one call: a
+        span across a join would have to consume the separator (batched
+        multi-text scans, as tools/jrep.py does)."""
+        if self.engine == "literal" and self.info.literals:
+            return any(any(b in s for s in analysis._clit_sets(lit))
+                       for lit in self.info.literals)
+        if self.engine == "classrun" and self._classrun is not None:
+            return bool(self._classrun[0][b])
+        if self.engine == "classlit" and self._classlit is not None:
+            sfx = self._classlit[4]
+            return bool(self._classlit[0][b]) or bytes([b]) in sfx
+        if self.tables is not None:
+            t = self.tables
+            if t.dead < 0:
+                return True
+            c = int(t.class_of[b])
+            return bool((t.next[:, c] != t.dead).any()
+                        or (t.accept[:, c] >= 0).any())
+        return True  # posnfa / oracle: assume it may
+
     # -- MatchType API ------------------------------------------------------
 
     def match_full(self, text: TextLike) -> bool:
@@ -787,10 +854,17 @@ class Pattern:
                 with Timer() as t_sel:
                     pid_u8 = spans.partition_pid_bytes(L, I).cpu().numpy()
                     out = spans.partition_arrays_host(pid_u8, len(t))
+            elif n_cand > self.config.device_select_threshold:
+                # Selection on the device: only the selected matches move
+                # to the host.
+                with Timer() as t_sel:
+                    out = select_device.match_all_device(L, I)
             else:
                 pos, end, pid = spans.candidates_host(L, I)
+                native = self._use_native()
                 with Timer() as t_sel:
-                    out = select.match_all_candidates(pos, end, pid)
+                    out = select.match_all_candidates(pos, end, pid,
+                                                      native=native)
         self._record("match_all", len(t), len(out[0]), t_dev.elapsed,
                      t_all.elapsed, n_cand=n_cand, t_sel=t_sel.elapsed)
         return out
@@ -906,7 +980,7 @@ class Pattern:
         engines compile none, but streaming always runs the DFA path), and
         placed on the device (`self.ct`) for streaming."""
         if self.tables is None:
-            self.tables = self._compile_tables()
+            self.tables = self._compile_tables_cached()
         if self.ct is None:
             self.ct = pipeline.device_tables(self.tables, device=self.device)
         return self.tables
@@ -973,12 +1047,13 @@ class Pattern:
 
         if self._oracle:
             return self._oracle_arrays(data)
+        native = self._use_native()
         if self.engine == "posnfa":
             return nfaset.stream_match_all_nfaset(
-                self._posnfa, data, state_dir=state_dir, progress=progress,
-                **self._posnfa_stream_kw(chunk_bytes))
+                self._posnfa, data, native=native, state_dir=state_dir,
+                progress=progress, **self._posnfa_stream_kw(chunk_bytes))
         return stream.stream_match_all(
-            self._dfa_tables(), data, state_dir=state_dir,
+            self._dfa_tables(), data, native=native, state_dir=state_dir,
             progress=progress, **self._stream_first_kw(chunk_bytes),
         )
 
@@ -1080,6 +1155,98 @@ class Pattern:
                      t_all.elapsed)
         return got
 
+    # -- Replace API --------------------------------------------------------
+
+    def _record_after(self, op: str, n_bytes: int, n_matches: int,
+                      t_all: float) -> None:
+        """last_stats of a Replace op: its own op, matches and wall, with
+        the device and selection split of the match call it made."""
+        st = self.last_stats
+        self._record(op, n_bytes, n_matches, st.device_time_s, t_all,
+                     n_cand=st.n_candidates, t_sel=st.select_time_s)
+
+    def replace(self, text: TextLike, repl: Union[str, bytes]) -> bytes:
+        """Replace every MatchAll span with `repl` (no group references:
+        the engines have no captures, docs/SEMANTICS.md)."""
+        t = text_to_u8(text)
+        r = _as_bytes(repl)
+        with Timer() as t_all:
+            starts, ends, _ = self.match_all_arrays(text)
+            if self._use_native():
+                got = native_lib.replace_splice(t, starts, ends, r)
+            else:
+                got = _splice(t, starts, ends, [r] * len(starts))
+        self._record_after("replace", len(t), len(starts), t_all.elapsed)
+        return got
+
+    def replace_each(self, text: TextLike,
+                     repls: Sequence[Union[str, bytes]]) -> bytes:
+        """Replace each match with the replacement of its pattern id: one
+        pass over the text for the whole pattern list (the regex-dna IUB
+        step is the canonical use, SURVEY.md §2.1/C12)."""
+        t = text_to_u8(text)
+        rs = [_as_bytes(r) for r in repls]
+        if len(rs) != len(self.irs):
+            raise ValueError(
+                f"need {len(self.irs)} replacements, got {len(rs)}")
+        with Timer() as t_all:
+            starts, ends, pids = self.match_all_arrays(text)
+            if self._use_native():
+                got = native_lib.replace_splice_multi(t, starts, ends, pids,
+                                                      rs)
+            else:
+                got = _splice(t, starts, ends, [rs[p] for p in pids.tolist()])
+        self._record_after("replace_each", len(t), len(starts),
+                           t_all.elapsed)
+        return got
+
+    def replace_first(self, text: TextLike,
+                      repl: Union[str, bytes]) -> bytes:
+        """Replace the MatchFirst span, if any, with `repl`."""
+        t = text_to_u8(text)
+        r = _as_bytes(repl)
+        with Timer() as t_all:
+            data = t.tobytes()
+            m = self.match_first(text)
+            got = data if m is None else data[:m[0]] + r + data[m[1]:]
+        self._record_after("replace_first", len(t), int(m is not None),
+                           t_all.elapsed)
+        return got
+
+    def split(self, text: TextLike, maxsplit: int = 0) -> List[bytes]:
+        """Split the text at MatchAll spans (Python's re.split without
+        captures): zero-width matches split too (re 3.7 and later), and
+        `maxsplit > 0` caps the number of splits."""
+        t = text_to_u8(text)
+        with Timer() as t_all:
+            starts, ends, _ = self.match_all_arrays(text)
+            if maxsplit > 0:
+                starts, ends = starts[:maxsplit], ends[:maxsplit]
+            data = t.tobytes()
+            cuts = [0, *np.stack([starts, ends], 1).ravel().tolist(), len(t)]
+            out = [data[a:b] for a, b in zip(cuts[::2], cuts[1::2])]
+        self._record_after("split", len(t), len(starts), t_all.elapsed)
+        return out
+
+
+def _as_bytes(s: Union[str, bytes]) -> bytes:
+    return s.encode("utf-8") if isinstance(s, str) else bytes(s)
+
+
+def _splice(t: np.ndarray, starts: np.ndarray, ends: np.ndarray,
+            reps: Sequence[bytes]) -> bytes:
+    """The text with span i replaced by reps[i] (the Python path of the
+    native splices)."""
+    data = t.tobytes()
+    out = []
+    pos = 0
+    for s, e, r in zip(starts.tolist(), ends.tolist(), reps):
+        out.append(data[pos:s])
+        out.append(r)
+        pos = e
+    out.append(data[pos:])
+    return b"".join(out)
+
 
 @functools.lru_cache(maxsize=256)
 def _cached(source: Tuple[bytes, ...], config: Config,
@@ -1125,10 +1292,38 @@ def match_all_count(pattern, text, config: Config = DEFAULT,
     return compile(pattern, config, device).match_all_count(text)
 
 
+def replace(pattern, text, repl, config: Config = DEFAULT,
+            device: DeviceLike = None) -> bytes:
+    return compile(pattern, config, device).replace(text, repl)
+
+
+def replace_first(pattern, text, repl, config: Config = DEFAULT,
+                  device: DeviceLike = None) -> bytes:
+    return compile(pattern, config, device).replace_first(text, repl)
+
+
+def replace_each(patterns, text, repls, config: Config = DEFAULT,
+                 device: DeviceLike = None) -> bytes:
+    return compile(patterns, config, device).replace_each(text, repls)
+
+
+def split(pattern, text, maxsplit: int = 0, config: Config = DEFAULT,
+          device: DeviceLike = None) -> List[bytes]:
+    return compile(pattern, config, device).split(text, maxsplit)
+
+
+# rejit names the all-spans variant ReplaceAll; `replace` has its
+# semantics.
+replace_all = replace
+
+
 # CamelCase aliases matching the reference naming.
 MatchFull = match_full
 MatchAnywhere = match_anywhere
 MatchFirst = match_first
 MatchAll = match_all
 MatchAllCount = match_all_count
+Replace = replace
+ReplaceFirst = replace_first
+ReplaceAll = replace_all
 Regej = Pattern

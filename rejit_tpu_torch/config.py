@@ -34,11 +34,23 @@ user's `Config` means the same thing in both. The port reads `engine`
   the posnfa engine, 'off' skips it in the chain), `max_pos_states`,
   `posnfa_block` (the posnfa engine's K; None: 64 for one packed word of
   positions, 128 for more) and `posnfa_chunk_bytes`.
+- `selection` ('auto', 'native' or 'python'): MatchAll's host selection
+  and the splices of `replace` / `replace_each` take the native helpers
+  (rejit_tpu_torch/native, compiled with g++ at first use) under 'auto'
+  where they build and under 'native' (which raises where they do not);
+  'python' never loads them;
+- `device_select_threshold`: above this many candidates MatchAll selects
+  on the device (engine/select_device.py, pointer doubling) and moves only
+  the selected matches to the host; the default, 1 << 31, keeps selection
+  on the host, as in the JAX package;
+- `disk_cache`: compiled DFA tables are read from and stored to the
+  on-disk cache (engine/cache.py; REJIT_TPU_CACHE_DIR, else
+  ~/.cache/rejit_tpu), in the JAX package's file format;
+- `print_tree` / `print_tables`: `Pattern` prints each parsed pattern's
+  tree and the compiled DFA tables, as the JAX package does.
 Every other field is accepted and has no effect in the port yet: the
 TPU-only knobs (`schain`, `schain_rolled`, `fused_chl`, `interpret`,
-`matmul`) and those of paths that later port slices bring (`selection`,
-`disk_cache`, `device_select_threshold`, `print_tree`, `print_tables`,
-`mesh_axis`).
+`matmul`) and `mesh_axis`, whose `mesh=` path a later port slice brings.
 """
 from __future__ import annotations
 

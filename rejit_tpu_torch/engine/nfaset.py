@@ -603,9 +603,10 @@ def stream_candidates_nfaset(
                                retries=retries, progress=progress)
 
 
-def stream_match_all_nfaset(pt: PosTables, source, **kw):
+def stream_match_all_nfaset(pt: PosTables, source, native: bool, **kw):
     """Exact chunked MatchAll on the position engine: (starts, ends, pids)
     int64 arrays after leftmost-longest non-overlap selection over the
-    candidates (keywords of stream_candidates_nfaset)."""
+    candidates (keywords of stream_candidates_nfaset; `native` as in
+    select.match_all_candidates)."""
     return select.match_all_candidates(
-        *stream_candidates_nfaset(pt, source, **kw))
+        *stream_candidates_nfaset(pt, source, **kw), native=native)

@@ -374,12 +374,13 @@ def _collect(state: _State, nc: int):
 
 
 def stream_match_all(
-    tables: DFATables, source, **kw
+    tables: DFATables, source, native: bool, **kw
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Non-overlapping leftmost-longest (starts, ends, pids) over
-    `source` (keywords of stream_candidates)."""
-    return select.match_all_candidates(*stream_candidates(tables, source,
-                                                          **kw))
+    `source` (keywords of stream_candidates; `native` as in
+    select.match_all_candidates)."""
+    return select.match_all_candidates(
+        *stream_candidates(tables, source, **kw), native=native)
 
 
 # ---------------------------------------------------------------------------
@@ -492,8 +493,9 @@ def _window_l(ct, tables, source, base, end, n, tail_np, block):
 
 
 def _full_scan_first(tables, source, anywhere, **kw):
-    """The exact chunked scan's first match (or whether there is one)."""
-    st, en, pid = stream_match_all(tables, source, **kw)
+    """The exact chunked scan's first match (or whether there is one): the
+    first candidate, which the greedy selection always takes."""
+    st, en, pid = stream_candidates(tables, source, **kw)
     if anywhere:
         return len(st) > 0
     if len(st) == 0:

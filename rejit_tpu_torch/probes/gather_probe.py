@@ -50,16 +50,54 @@ def inputs(u: int, device) -> tuple:
             torch.from_numpy(y.astype(np.int32)).to(device))
 
 
+def busiest_bank_wavefronts(u: int, iters: int, n: int = 0) -> float:
+    """Shared-memory wavefronts a warp's serial lookup takes on the probe's
+    own inputs, the mean over every warp, chain and step.
+
+    A warp is 32 neighbouring lanes of one row, so its loads read row r of
+    T at the chains' current values y: bank y % 32, and a bank serves one
+    distinct address a wavefront (equal addresses are one broadcast). A
+    step costs the warp as many wavefronts as its busiest bank has distinct
+    addresses (1 to 4 of a 128-entry row). The chains are stepped exactly
+    as the kernel steps them, from `inputs(u)` at n."""
+    t, y = inputs(u, "cpu")
+    T = t.numpy().astype(np.int64)
+    Y = np.clip(y.numpy().astype(np.int64) + (n & 1), 0, LANES - 1)
+    rows = (np.arange(ROWS * u) % ROWS)[:, None]
+    chain = np.arange(ROWS * u)[:, None]
+    warp = (np.arange(LANES) // 32)[None, :]
+    total = 0
+    for _ in range(iters):
+        Y = T[rows, Y]
+        seen = np.zeros((ROWS * u, LANES // 32, LANES), dtype=bool)
+        seen[chain, warp, Y] = True
+        total += int(seen.reshape(ROWS * u, LANES // 32, LANES // 32, 32)
+                     .sum(2).max(2).sum())
+    return total / (iters * ROWS * u * (LANES // 32))
+
+
 def whole_card_replicas(mode: str, u: int) -> int:
     """Every SM's resident blocks: the grid that reads the card's rate."""
     props = torch.cuda.get_device_properties(0)
     return props.multi_processor_count * probe_cuda.blocks_per_sm(mode, u)
 
 
+# The host clock of the CPU timing (a module attribute, so a test can
+# replace it).
+_clock = time.perf_counter
+# Slopes whose median is taken when the first slope is not positive.
+SLOPE_TRIES = 3
+
+
 def seconds_per_call(fn, device, reps: int = 8) -> float:
     """Slope of chained calls: (time of 2R calls - time of R) / R, with R
     doubled until R calls take 20 ms (CUDA events on the card, the host
-    clock on the CPU)."""
+    clock on the CPU).
+
+    On a loaded host the R run can stall past the 2R run, which gives a
+    slope of 0 or less. The slope is then measured again at twice R, as
+    the median of SLOPE_TRIES slopes; if that is not positive either, it
+    raises rather than return a time no rate can be divided by."""
     cuda = torch.device(device).type == "cuda"
 
     def run(r: int) -> float:
@@ -72,17 +110,28 @@ def seconds_per_call(fn, device, reps: int = 8) -> float:
             t1.record()
             torch.cuda.synchronize()
             return t0.elapsed_time(t1) / 1e3
-        a = time.perf_counter()
+        a = _clock()
         for _ in range(r):
             fn()
-        return time.perf_counter() - a
+        return _clock() - a
 
     fn()
     if cuda:
         torch.cuda.synchronize()
     while run(reps) < 0.02 and reps < (1 << 16):
         reps *= 2
-    return max(run(2 * reps) - run(reps), 0.0) / reps
+    slope = (run(2 * reps) - run(reps)) / reps
+    if slope > 0:
+        return slope
+    reps *= 2
+    slope = float(np.median([(run(2 * reps) - run(reps)) / reps
+                             for _ in range(SLOPE_TRIES)]))
+    if slope > 0:
+        return slope
+    raise RuntimeError(
+        f"no positive slope of chained calls at R = {reps} (the median of "
+        f"{SLOPE_TRIES} was {slope} s): the clock is too coarse or the host "
+        "too loaded to time this call")
 
 
 def measure(*, mode: str = "serial", u: int = 8, iters: int = 4096,

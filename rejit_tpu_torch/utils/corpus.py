@@ -1,8 +1,9 @@
-"""Deterministic benchmark corpus: seeded English-like ASCII text with a
-controllable density of planted needle words.
+"""Deterministic corpora: seeded English-like ASCII text with a
+controllable density of planted needle words, and the regex-dna FASTA.
 
-The port's own copy of the JAX package's bench/corpus.py generator: the
-same seed gives the same bytes. Built with numpy, a million words at a time
+`make_corpus` is the port's own copy of the JAX package's bench/corpus.py
+generator, `make_fasta` of samples/regexdna.py's: the same seed gives the
+same bytes. `make_corpus` is built with numpy, a million words at a time
 gathered from a table of the words with their trailing space, instead of a
 Python join, so a corpus of hundreds of megabytes takes seconds.
 """
@@ -54,3 +55,17 @@ def make_corpus(
         out[at:at + take] = flat[:take]
         at += take
     return out.tobytes()
+
+
+def make_fasta(n: int, seed: int = 42) -> bytes:
+    """Benchmarks-Game-style FASTA for regex-dna: one header line, then n
+    random bases (acgt, with the IUB ambiguity codes sprinkled in) in lines
+    of 60."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"acgtacgtacgtacgtacgtBDHKMNRSVWY",
+                             dtype=np.uint8)
+    seq = rng.choice(alphabet, size=n)
+    lines = [b">ONE Homo sapiens alu"]
+    for i in range(0, n, 60):
+        lines.append(seq[i:i + 60].tobytes())
+    return b"\n".join(lines) + b"\n"

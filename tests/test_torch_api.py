@@ -177,7 +177,7 @@ def test_select_equals_rejit_tpu(seed, overlap):
             np.int32
         )
     pid = rng.integers(0, 3, size=len(pos)).astype(np.int32)
-    got = select.match_all_candidates(pos, end, pid)
+    got = select.match_all_candidates(pos, end, pid, native=False)
     want = jax_select.match_all_candidates(pos, end, pid)
     loop = select.greedy(*(x.astype(np.int64) for x in (pos, end, pid)))
     for a, b, c in zip(got, want, loop):

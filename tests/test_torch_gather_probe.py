@@ -92,9 +92,11 @@ def test_plain_equals_pallas_probe(mode, u, iters, qs, n):
         np.testing.assert_array_equal(got[r].numpy(), want)
 
 
-def test_probe_inputs_and_checks():
+def test_probe_inputs_and_checks(monkeypatch):
     """The inputs are the JAX script's; bad arguments raise; a CPU run
-    counts no launch; the JSON fields of a CPU measurement."""
+    counts no launch; the JSON fields of a CPU measurement, timed by a
+    clock that advances 1 ms a call (the host clock of a loaded CPU can
+    stall the R run past the 2R run)."""
     t, y = gather_probe.inputs(3, "cpu")
     assert t.shape == (8, 128) and y.shape == (24, 128)
     assert all(sorted(r.tolist()) == list(range(128)) for r in t)
@@ -114,6 +116,15 @@ def test_probe_inputs_and_checks():
     big = torch.zeros((8 * 17, 128), dtype=torch.int32)
     with pytest.raises(ValueError):
         probe_cuda.gather_chain(t, big, 0, iters=1, mode="serial", qs=0)
+    now = [0.0]
+    chain = probe_cuda.gather_chain
+
+    def timed_chain(*a, **kw):
+        now[0] += 1e-3
+        return chain(*a, **kw)
+
+    monkeypatch.setattr(gather_probe, "_clock", lambda: now[0])
+    monkeypatch.setattr(probe_cuda, "gather_chain", timed_chain)
     probe_cuda.reset_launches()
     row = gather_probe.measure(mode="select", u=1, iters=2, qs=4,
                                device="cpu")
@@ -121,6 +132,37 @@ def test_probe_inputs_and_checks():
     assert {"mode", "u", "iters", "qs", "sec_per_call", "vreg_ops_per_sec",
             "select_rows_per_sec"} <= set(row)
     assert row["qs"] == 4 and row["device"] == "cpu"
+    assert row["sec_per_call"] == pytest.approx(1e-3, rel=1e-9)
+
+
+def _scripted(cost):
+    """(fn, clock, calls): fn advances the clock by cost(call number)."""
+    state = {"t": 0.0, "calls": 0}
+
+    def fn():
+        state["calls"] += 1
+        state["t"] += cost(state["calls"])
+
+    return fn, lambda: state["t"], state
+
+
+def test_slope_remeasured_after_a_stall(monkeypatch):
+    """A stalled R run (calls 26-33 cost 5 s, the rest 1 s) makes the 2R
+    run the shorter: the slope is measured again at twice R, the median of
+    three, and is the true 1 s a call."""
+    fn, clock, state = _scripted(lambda c: 5.0 if 26 <= c <= 33 else 1.0)
+    monkeypatch.setattr(gather_probe, "_clock", clock)
+    assert gather_probe.seconds_per_call(fn, "cpu") == 1.0
+    # warm-up 1, R = 8 (long enough), 2R = 16, the stalled R = 8, then
+    # three re-measures at 2R = 32 and R = 16
+    assert state["calls"] == 1 + 8 + 16 + 8 + 3 * (32 + 16)
+
+
+def test_slope_never_positive_raises(monkeypatch):
+    fn, clock, _ = _scripted(lambda c: 0.0)
+    monkeypatch.setattr(gather_probe, "_clock", clock)
+    with pytest.raises(RuntimeError, match="no positive slope"):
+        gather_probe.seconds_per_call(fn, "cpu")
 
 
 @pytest.fixture
@@ -144,3 +186,23 @@ def test_kernel_equals_plain_on_card(card, mode, qs):
                 want = probe_cuda.gather_chain_plain(
                     t, y, n, iters=37, mode=mode, qs=qs, replicas=replicas)
                 assert torch.equal(got, want)
+
+
+def test_busiest_bank_wavefronts_equals_a_plain_count():
+    """The exact count of wavefronts a warp lookup takes, against a loop
+    over every warp's 32 loads (bank = address % 32, equal addresses one
+    broadcast)."""
+    u, iters = 2, 3
+    t, y = gather_probe.inputs(u, "cpu")
+    T, Y = t.numpy(), np.clip(y.numpy(), 0, 127)
+    total = cases = 0
+    for _ in range(iters):
+        Y = np.stack([T[r % 8][Y[r]] for r in range(8 * u)])
+        for r in range(8 * u):
+            for w in range(4):
+                addrs = set(Y[r, 32 * w:32 * w + 32].tolist())
+                total += max(sum(1 for a in addrs if a % 32 == b)
+                             for b in range(32))
+                cases += 1
+    assert gather_probe.busiest_bank_wavefronts(u, iters) == total / cases
+    assert 1 < total / cases <= 4

@@ -40,6 +40,13 @@ def test_import_loads_no_jax_and_no_rejit_tpu():
         "import rejit_tpu_torch.engine.nfaset\n"
         "import rejit_tpu_torch.kernels.probe_cuda\n"
         "import rejit_tpu_torch.probes.gather_probe\n"
+        "import rejit_tpu_torch.native.build\n"
+        "import rejit_tpu_torch.native.lib\n"
+        "import rejit_tpu_torch.engine.select_device\n"
+        "import rejit_tpu_torch.engine.cache\n"
+        "import rejit_tpu_torch.engine.reference\n"
+        "import rejit_tpu_torch.compile.debug\n"
+        "import rejit_tpu_torch.utils.corpus\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib') "
         "or m == 'rejit_tpu' or m.startswith('rejit_tpu.') "

@@ -328,7 +328,7 @@ def test_stream_retries_a_failed_chunk(monkeypatch, engine):
     data = _u8(b"sing winging thing " * 20)
     tables = _port(r"\b\w+ing\b", engine)._dfa_tables()
     kw = dict(device="cpu", chunk_bytes=64, block=8, engine=engine)
-    want = stream.stream_match_all(tables, data, **kw)
+    want = stream.stream_match_all(tables, data, native=False, **kw)
     name = "_fused_chunk" if engine == "fused" else "_split_chunk"
     real = getattr(stream, name)
     seen = []
@@ -341,7 +341,7 @@ def test_stream_retries_a_failed_chunk(monkeypatch, engine):
 
     monkeypatch.setattr(stream, name, flaky)
     before = stream.RETRIES
-    got = stream.stream_match_all(tables, data, **kw)
+    got = stream.stream_match_all(tables, data, native=False, **kw)
     assert stream.RETRIES == before + 2
     for x, y in zip(got, want):
         np.testing.assert_array_equal(x, y)
@@ -351,7 +351,7 @@ def test_stream_retries_a_failed_chunk(monkeypatch, engine):
 
     monkeypatch.setattr(stream, name, broken)
     with pytest.raises(RuntimeError, match="after 3 attempts") as info:
-        stream.stream_match_all(tables, data, **kw)
+        stream.stream_match_all(tables, data, native=False, **kw)
     assert str(info.value.__cause__) == "permanent"
     assert stream.RETRIES == before + 4
 
