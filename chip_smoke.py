@@ -126,7 +126,22 @@ per source, all started together), then:
    `Config(device_select_threshold=0)` (pointer doubling): equal arrays,
    equal to `re` at 10 MB, each with its candidates, cap bucket, rounds,
    peak device memory and (outside --quick) wall;
-12. times the kernels, their plain versions, the library calls, the split
+12. runs the mesh= path (`mesh_phase`) on 8 shards of the card and on 1:
+   config 3 (256 MiB) on the sharded fused route (8 schain_fused calls
+   with emit_f a call, and nothing else) and under schain_fused='off'
+   (8 dfa_phase1 and 8 dfa_phase3), config 5 (`packet` over 1 GiB of
+   `make_corpus(seed=4, density=0.002)`: the literal route's spans and
+   psum count through the API, no kernel; `sharded_l_arrays` on its DFA
+   tables, fused), config 4's tokenizer and the 250-word set (10 MB, split)
+   and a sparse text (the FF skip), each equal to the single-device call,
+   configs 3 and 5 to `re` and config 5's count to `bytes.count`; the
+   kernels held against their plain versions on calls the path made
+   (recorded: shard inputs, first_start, neutral seed; schain_fused with
+   the skip on and off); the two-process gloo worker (4 shards a rank on
+   cuda:0) and a one-rank NCCL group (8 shards), each printing MULTIPROC
+   OK; outside --quick the walls of the single-device call against D = 1
+   and D = 8 (median of 3);
+13. times the kernels, their plain versions, the library calls, the split
    route's stages and the entry points' walls (host bytes and staged
    corpus) with CUDA events and the host clock, on the 10 MB text and on
    a 256 MiB text from the same generator, and config 1 at 10 MiB and
@@ -243,6 +258,16 @@ SELECT_PATTERNS = {"classrun": rb"\b\w{3,50}\b", "dfa": rb"\w+\s"}
 SELECT_SIZES = (10_000_000, 256 << 20)
 # The one kernel each select case's engine launches a call.
 SELECT_KERNEL = {"classrun": "scan1d", "dfa": "schain_fused"}
+# The mesh= path (`mesh_phase`): D shards on one card, and the single
+# device. BASELINE config 5 (`bench/harness.py:617-660`): `packet` over
+# make_corpus(seed=4, density=0.002), at 1 GiB (int32 positions, one call);
+# config 3 at 256 MiB; config 4 (the tokenizer) and the 250-word set at
+# 10 MB.
+MESH_D = 8
+CONFIG5_SIZE = 1 << 30
+MESH_CONFIG3_SIZE = 256 << 20
+MESH_SMALL_SIZE = 10_000_000
+MESH_WORKER_TIMEOUT_S = 300
 
 
 START = time.perf_counter()
@@ -1877,6 +1902,336 @@ def select_phase(rt, reset, launches, only, quick: bool) -> dict:
     return total
 
 
+class Recorder:
+    """Records the calls a path makes to kernel wrappers (module
+    attributes, `targets` of (module, name)) and passes them through: the
+    path's own inputs, to hold each kernel against its plain version on
+    them after."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.calls = []
+        self._saved = []
+
+    def __enter__(self):
+        for mod, name in self.targets:
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+
+            def wrapper(*args, _fn=fn, _name=name, **kw):
+                self.calls.append((_name, args, kw))
+                return _fn(*args, **kw)
+            setattr(mod, name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def recorded_vs_plain(calls) -> dict:
+    """Max |kernel - plain| of each recorded wrapper call, re-run on the
+    same CUDA tensors: schain_fused (emit_f; L, I, G and F on every
+    boundary) with the FF skip on and off, and the tiles it skipped;
+    dfa_phase1 and dfa_phase3 with the path's first_start."""
+    from rejit_tpu_torch.kernels import dfa_cuda as dc
+    from rejit_tpu_torch.kernels import schain_cuda as sc
+
+    err = {"schain_fused_emit_f": 0, "dfa_phase1": 0, "dfa_phase3": 0}
+    skipped = tiles = 0
+    for name, args, kw in calls:
+        if name == "schain_fused":
+            kw = {k: v for k, v in kw.items() if k not in ("use_ff", "stats")}
+            check(kw.get("emit_f"), "a sharded schain_fused call without F")
+            want = sc.schain_fused_plain(*args, **kw)
+            for use_ff in (True, False):
+                st = {}
+                got = sc.schain_fused(*args, use_ff=use_ff, stats=st, **kw)
+                err["schain_fused_emit_f"] = max(err["schain_fused_emit_f"],
+                                                 max_abs_err(got, want))
+                if use_ff:
+                    skipped += int(st["skipped_tiles"])
+                    tiles += st["tiles"]
+        elif name == "phase1":
+            err["dfa_phase1"] = max(err["dfa_phase1"], max_abs_err(
+                dc.phase1(*args, **kw), dc.phase1_plain(*args, **kw)))
+        else:
+            err["dfa_phase3"] = max(err["dfa_phase3"], max_abs_err(
+                dc.phase3(*args, **kw), dc.phase3_plain(*args, **kw)))
+    torch.cuda.synchronize()
+    return {"max_abs_err": err, "calls": len(calls), "tiles": tiles,
+            "skipped_tiles": skipped}
+
+
+def start_mesh_workers(root: str) -> list:
+    """The two-process gloo worker (four shards a rank on cuda:0) and a
+    one-rank NCCL group (eight shards), started in the background:
+    [(label, rank, Popen)]."""
+    import socket
+
+    def port() -> int:
+        with socket.socket() as s_:
+            s_.bind(("localhost", 0))
+            return s_.getsockname()[1]
+
+    runs = (("gloo", 2, ["--backend", "gloo", "--shards", "4"]),
+            ("nccl", 1, ["--backend", "nccl", "--shards", "8"]))
+    procs = []
+    for label, world, extra in runs:
+        env = dict(os.environ, PYTHONPATH=root, MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port()), WORLD_SIZE=str(world))
+        for rank in range(world):
+            procs.append((label, rank, subprocess.Popen(
+                [sys.executable, "-m", "rejit_tpu_torch.dist.multiproc_worker",
+                 "--device", "cuda", *extra], cwd=root,
+                env=dict(env, RANK=str(rank)), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def finish_mesh_workers(procs) -> dict:
+    """Wait for the workers (killing any left at the timeout); each must
+    exit 0 and print its MULTIPROC OK line."""
+    res = {}
+    try:
+        for label, rank, pr in procs:
+            out, err = pr.communicate(timeout=MESH_WORKER_TIMEOUT_S)
+            ok = [ln for ln in out.splitlines()
+                  if ln.startswith(f"MULTIPROC OK {rank} ")]
+            check(pr.returncode == 0 and len(ok) == 1,
+                  f"{label} worker rank {rank}: rc {pr.returncode}, "
+                  f"{out[-500:]!r} {err[-2000:]!r}")
+            res[f"{label}_rank{rank}"] = ok[0]
+    finally:
+        for _, _, pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    return res
+
+
+def mesh_phase(rt, root: str, main_text: bytes, words, reset, launches,
+               only, quick: bool) -> tuple:
+    """The mesh= path on cuda:0, D = MESH_D shards and one, each call with
+    the launch counts set to 0 just before and read just after: config 3
+    (256 MiB, fused sweep; and schain_fused='off', split), config 5 (1 GiB:
+    the literal route's spans and psum count through the API, and
+    sharded_l_arrays on its DFA tables, fused), config 4's tokenizer and
+    the 250-word set (10 MB, split), and a sparse text (the FF skip); each
+    equal to the single-device call, and configs 3 and 5 to `re`. The
+    kernels are held against their plain versions on the calls the path
+    made (recorded). The two-process gloo worker and a one-rank NCCL group
+    run beside it. Outside --quick, the walls of the single-device call
+    against D = 1 and D = MESH_D. Returns (launches on the mesh path by
+    kernel name, max_abs_err by kernel name)."""
+    from rejit_tpu_torch.dist import sharded as dsh
+    from rejit_tpu_torch.dist.mesh import make_mesh
+    from rejit_tpu_torch.kernels import dfa_cuda as dc
+    from rejit_tpu_torch.kernels import schain_cuda as sc
+    from rejit_tpu_torch.utils.corpus import make_corpus
+
+    workers = start_mesh_workers(root)
+    meshes = {1: make_mesh([DEV]), MESH_D: make_mesh([DEV] * MESH_D)}
+    m8 = meshes[MESH_D]
+    check(m8.size == MESH_D and m8.devices[0] == m8.devices[-1], f"{m8}")
+    total, errs, skips = {}, {}, {}
+    targets = ((sc, "schain_fused"), (dc, "phase1"), (dc, "phase3"))
+
+    def drive(label, fn, **want):
+        """fn() with the counts at 0 just before; exactly `want`."""
+        reset()
+        out = fn()
+        got = launches()
+        check(only(got, **want), f"mesh {label}: launches {got}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    def held(label, calls):
+        e = recorded_vs_plain(calls)
+        emit({"phase": "mesh_kernels_vs_plain", "path": label, **e})
+        for k, v in e["max_abs_err"].items():
+            errs[k] = max(errs.get(k, 0), v)
+        skips[label] = e["skipped_tiles"]
+
+    try:
+        # Config 3 at 256 MiB: the fused sweep, D schain_fused (emit_f) a
+        # call; schain_fused='off': D dfa_phase1 and D dfa_phase3.
+        c3 = make_corpus(MESH_CONFIG3_SIZE, seed=2, needle=b"matching",
+                         density=0.01)
+        p3 = rt.Pattern(MAIN_PATTERN, device=DEV)
+        check(p3.fused and p3._sharded_kw(m8)["engine"] == "fused",
+              "config 3 not on the sharded fused route")
+        single = p3.match_all_arrays(c3)
+        check(spans_of(single) == re_spans(MAIN_PATTERN, c3),
+              "config 3: single-device spans differ from re")
+        row = {"n": len(c3), "matches": len(single[0])}
+        for D, m in meshes.items():
+            out = drive(f"config 3 D={D}",
+                        lambda: p3.match_all_arrays(c3, mesh=m),
+                        schain_fused=D)
+            check(same_arrays(out, single), f"config 3 D={D} differs")
+            cnt = drive(f"config 3 count D={D}",
+                        lambda: p3.match_all_count(c3, mesh=m),
+                        schain_fused=D)
+            check(cnt == len(single[0]), f"config 3 count D={D}: {cnt}")
+        with Recorder(targets) as rec:
+            p3.match_all_arrays(c3, mesh=m8)
+        held("config 3 fused, shards 0, 3 and 7",
+             [rec.calls[i] for i in (0, 3, MESH_D - 1)])
+        off = rt.Pattern(MAIN_PATTERN, rt.Config(schain_fused="off"),
+                         device=DEV)
+        check(off._sharded_kw(m8)["engine"] == "split", "off: route")
+        for D, m in meshes.items():
+            out = drive(f"config 3 off D={D}",
+                        lambda: off.match_all_arrays(c3, mesh=m),
+                        dfa_phase1=D, dfa_phase3=D)
+            check(same_arrays(out, single), f"config 3 off D={D} differs")
+        with Recorder(targets) as rec:
+            off.match_all_arrays(c3, mesh=m8)
+        held("config 3 split, shards 0, 3 and 7",
+             [[c for c in rec.calls if c[0] == k][i]
+              for k in ("phase1", "phase3") for i in (0, 3, MESH_D - 1)])
+        emit({"phase": "mesh_config3", **row, "shards": list(meshes),
+              "equal_to_single_device": True, "equal_to_re": True})
+        # The workers end before any wall is timed.
+        emit({"phase": "mesh_workers", **finish_mesh_workers(workers)})
+        walls = {}
+        if not quick:
+            walls["config3_256MiB"] = {
+                "single": wall_s(lambda: p3.match_all_arrays(c3), 3),
+                **{f"D{D}": wall_s(lambda: p3.match_all_arrays(c3, mesh=m),
+                                   3) for D, m in meshes.items()},
+                "split_single": wall_s(lambda: off.match_all_arrays(c3), 3),
+                **{f"split_D{D}": wall_s(
+                    lambda: off.match_all_arrays(c3, mesh=m), 3)
+                   for D, m in meshes.items()}}
+        del c3, single, out
+
+        # A sparse text: the FF tile skip under the neutral seed.
+        sp = sparse_text(MESH_SMALL_SIZE, seed=5)
+        out = drive("sparse D=8", lambda: p3.match_all_arrays(sp, mesh=m8),
+                    schain_fused=MESH_D)
+        check(same_arrays(out, p3.match_all_arrays(sp)), "sparse differs")
+        with Recorder(targets) as rec:
+            p3.match_all_arrays(sp, mesh=m8)
+        held("sparse fused, every shard", rec.calls)
+        check(skips["sparse fused, every shard"] > 0,
+              "the FF skip was not taken on the sharded sparse text")
+
+        # Config 4: the tokenizer at 10 MB, fused.
+        tokp = rt.Pattern(TOKENIZER, device=DEV)
+        tok = tokp.tokenize(main_text)
+        got = drive("config 4 D=8", lambda: tokp.tokenize(main_text,
+                                                          mesh=m8),
+                    schain_fused=MESH_D)
+        check(got == tok, "config 4: sharded tokens differ")
+        with Recorder(targets) as rec:
+            tokp.tokenize(main_text, mesh=m8)
+        held("config 4 fused, shards 0, 3 and 7",
+             [rec.calls[i] for i in (0, 3, MESH_D - 1)])
+        emit({"phase": "mesh_config4", "n": len(main_text),
+              "tokens": len(tok), "equal_to_single_device": True})
+        if not quick:
+            # The arrays' walls: tokenize adds the same Python list of
+            # ~3.4M tuples to both.
+            walls["config4_10MB"] = {
+                "single": wall_s(lambda: tokp.match_all_arrays(main_text),
+                                 3),
+                f"D{MESH_D}": wall_s(lambda: tokp.match_all_arrays(
+                    main_text, mesh=m8), 3)}
+        del tok, got
+
+        # The 250-word set (Q = 871) at 10 MB: the split route.
+        wp = rt.Pattern(b"|".join(words), device=DEV)
+        check(wp._sharded_kw(m8)["engine"] == "split", "250-word route")
+        wtext = words_text(MESH_SMALL_SIZE)
+        wsingle = wp.match_all_arrays(wtext)
+        out = drive("250-word D=8", lambda: wp.match_all_arrays(
+            wtext, mesh=m8), dfa_phase1=MESH_D, dfa_phase3=MESH_D)
+        check(same_arrays(out, wsingle), "250-word: sharded differs")
+        with Recorder(targets) as rec:
+            wp.match_all_arrays(wtext, mesh=m8)
+        held("250-word split, shards 0, 3 and 7",
+             [[c for c in rec.calls if c[0] == k][i]
+              for k in ("phase1", "phase3") for i in (0, 3, MESH_D - 1)])
+        emit({"phase": "mesh_250_words", "Q": wp.ct.n_states,
+              "n": len(wtext), "matches": len(wsingle[0]),
+              "equal_to_single_device": True})
+        if not quick:
+            walls["words250_10MB"] = {
+                "single": wall_s(lambda: wp.match_all_arrays(wtext), 3),
+                f"D{MESH_D}": wall_s(lambda: wp.match_all_arrays(
+                    wtext, mesh=m8), 3)}
+        del wtext, wsingle, out
+
+        # Config 5 at 1 GiB: the literal route (spans, psum count) through
+        # the API, and sharded_l_arrays on its DFA tables (fused).
+        c5 = make_corpus(CONFIG5_SIZE, seed=4, needle=CONFIG1_PATTERN,
+                         density=0.002)
+        want5 = re_spans(CONFIG1_PATTERN, c5)
+        check(len(want5) == c5.count(CONFIG1_PATTERN), "re and count")
+        p5 = rt.Pattern(CONFIG1_PATTERN, device=DEV)
+        check(p5.engine == "literal" and p5.info.overlap_free,
+              "config 5 route")
+        single5 = p5.match_all_arrays(c5)
+        check(spans_of(single5) == want5, "config 5: single differs from re")
+        for D, m in meshes.items():
+            out = drive(f"config 5 D={D}",
+                        lambda: p5.match_all_arrays(c5, mesh=m))
+            check(same_arrays(out, single5), f"config 5 D={D} differs")
+            cnt = drive(f"config 5 count D={D}",
+                        lambda: p5.match_all_count(c5, mesh=m))
+            check(cnt == len(want5), f"config 5 count D={D}: {cnt}")
+        d5 = rt.Pattern(CONFIG1_PATTERN, rt.Config(engine="dfa"), device=DEV)
+        arr5 = np.frombuffer(c5, np.uint8)
+        with Recorder(targets) as rec:
+            L5, I5 = drive("config 5 sharded_l_arrays D=8",
+                           lambda: dsh.sharded_l_arrays(
+                               d5.tables, arr5, m8, block=d5.fused_block,
+                               engine="fused", cts=d5._mesh_tables(m8)),
+                           schain_fused=MESH_D)
+        pos = np.flatnonzero(L5 >= 0)
+        check(pos.tolist() == [a for a, _ in want5]
+              and L5[pos].tolist() == [b for _, b in want5]
+              and not I5[pos].any() and len(L5) == len(c5) + 1,
+              "config 5 sharded_l_arrays differs from re")
+        held("config 5 fused, shard 4", rec.calls[4:5])
+        del L5, I5, pos, rec
+        emit({"phase": "mesh_config5", "n": len(c5),
+              "matches": len(want5), "shards": list(meshes),
+              "count_equal_to_bytes_count": True,
+              "equal_to_single_device": True, "equal_to_re": True,
+              "sharded_l_arrays_equal_to_re": True})
+        if not quick:
+            walls["config5_1GiB"] = {
+                "single": wall_s(lambda: p5.match_all_arrays(c5), 3),
+                **{f"D{D}": wall_s(lambda: p5.match_all_arrays(c5, mesh=m),
+                                   3) for D, m in meshes.items()},
+                "count_single": wall_s(lambda: p5.match_all_count(c5), 3),
+                f"count_D{MESH_D}": wall_s(
+                    lambda: p5.match_all_count(c5, mesh=m8), 3)}
+        del c5, arr5, single5, out
+
+        if walls:
+            # "D8" against "single", "split_D8" against "split_single", ...
+            over = {c: {k: v["median_s"]
+                        / w[k.split("D")[0] + "single"]["median_s"]
+                        for k, v in w.items() if "D" in k}
+                    for c, w in walls.items()}
+            emit({"phase": "mesh_walls", "walls": walls,
+                  "overhead_vs_single": over})
+        emit({"phase": "mesh_launches", "launches": total,
+              "max_abs_err": errs, "skipped_tiles": skips})
+    finally:
+        for _, _, pr in workers:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    return total, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device available", file=sys.stderr)
@@ -2334,7 +2689,16 @@ def main() -> int:
           f"path's shapes: {dna_errs}")
     sel_launches = select_phase(rt, reset, launches, only, quick)
 
-    # 12. Times at 10 MB and 256 MiB.
+    # 12. The mesh= path: D shards on the card against the single device.
+    mesh_launches, mesh_errs = mesh_phase(rt, root, main_text, words, reset,
+                                          launches, only, quick)
+    for k, v in mesh_errs.items():
+        errs[k] = max(errs[k], v)
+    check(all(v == 0 for v in mesh_errs.values()),
+          f"kernels differ from their plain versions at the mesh path's "
+          f"shapes: {mesh_errs}")
+
+    # 13. Times at 10 MB and 256 MiB.
     times = {}
     if not quick:
         t10, _ = time_size(rt, main_text, "10MB", reps=20, wall_reps=10)
@@ -2405,6 +2769,12 @@ def main() -> int:
             # selection path, the first call)
             "launches_replace_path": dna_launches.get(name, 0),
             "launches_select_path": sel_launches.get(name, 0),
+            # the mesh phase's counted calls: its schain_fused calls all
+            # write F, so they count under schain_fused_emit_f
+            "launches_mesh_path": (
+                mesh_launches.get("schain_fused", 0)
+                if name == "schain_fused_emit_f" else 0
+                if name == "schain_fused" else mesh_launches.get(name, 0)),
         }
         kernels.append(row)
     emit({"kernels": kernels})

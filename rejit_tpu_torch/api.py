@@ -53,6 +53,16 @@ read its host bytes, as in the JAX package). Entry points run on the card
 unless the caller passes `device="cpu"`; with no CUDA device present they
 raise rather than carry on quietly on the CPU.
 
+`mesh=` on `match_first`, `match_all`, `match_all_arrays`, `tokenize` and
+`match_all_count` shards the scan over a dist.mesh.Mesh (devices of this
+process, and processes of a torch.distributed group; 'auto' takes every
+local card when there are several shards): overlap-free literal sets
+take the bounded-window literal route (dist/literal.py), every engine with
+DFA tables their exact cross-shard route (dist/sharded.py: schain_fused a
+shard where the pattern's route rule takes the fused kernel for the
+mesh's devices, else the split kernels); the posnfa and oracle engines
+raise CompileError.
+
 Selection and Replace run on the host: MatchAll's greedy non-overlap walk
 over the compacted candidates and the replacement splices of `replace` /
 `replace_each` take the native helpers (native/, compiled with g++ at first
@@ -74,6 +84,9 @@ from .compile import analysis, ir, parser
 from .compile.dfa import compile_patterns
 from .compile.posnfa import compile_posnfa
 from .config import DEFAULT, Config
+from .dist import literal as dlit
+from .dist import sharded as dsh
+from .dist.mesh import Mesh, local_cuda_devices, make_mesh
 from .engine import nfaset, pipeline, select, select_device, spans
 from .errors import CompileError, StateBlowupError
 from .kernels import classlit, classrun, extract_cuda, literal, schain_cuda
@@ -313,6 +326,7 @@ class Pattern:
         self._classlit = None
         self._oracle = None
         self._posnfa = None
+        self._cts = {}        # device -> DeviceTables of mesh= calls
         self.last_stats: MatchStats = MatchStats()
         if self.engine in ("classrun", "classlit"):
             kernel = classrun if self.engine == "classrun" else classlit
@@ -438,8 +452,9 @@ class Pattern:
         self.engine = "oracle"
         return None
 
-    def _use_schain_fused(self) -> bool:
-        """The fused route (kernels/schain_cuda.py) or the split pipeline."""
+    def _use_schain_fused(self, device_type: Optional[str] = None) -> bool:
+        """The fused route (kernels/schain_cuda.py) or the split pipeline,
+        for tables on the pattern's device (or on `device_type`)."""
         mode = self.config.schain_fused
         if mode == "off":
             return False
@@ -452,7 +467,7 @@ class Pattern:
                     f"(Q={t.n_states}, C={t.n_classes})"
                 )
             return True
-        return fits and self.device.type == "cuda"
+        return fits and (device_type or self.device.type) == "cuda"
 
     def _use_kernels(self) -> bool:
         """Whether the literal and elementwise engines take their kernel
@@ -736,8 +751,13 @@ class Pattern:
                      t_all.elapsed, n_cand=c)
         return c > 0
 
-    def match_first(self, text: TextLike) -> Optional[Span]:
+    def match_first(self, text: TextLike, mesh=None) -> Optional[Span]:
         t, corpus = _unwrap(text)
+        m_ = self._resolve_mesh(mesh)
+        if m_ is not None:
+            s, e, _ = self._sharded_arrays(t, m_)
+            self.last_stats.op = "match_first"
+            return (int(s[0]), int(e[0])) if len(s) else None
         if self._oracle:
             with Timer() as t_all:
                 m = self._oracle.match_first(self._oracle_bytes(t))
@@ -778,15 +798,20 @@ class Pattern:
             return None
         return (int(pos[0]), int(end[0]))
 
-    def match_all(self, text: TextLike) -> List[Span]:
-        starts, ends, _ = self.match_all_arrays(text)
+    def match_all(self, text: TextLike, mesh=None) -> List[Span]:
+        starts, ends, _ = self.match_all_arrays(text, mesh=mesh)
         return list(zip(starts.tolist(), ends.tolist()))
 
     def match_all_arrays(
-        self, text: TextLike
+        self, text: TextLike, mesh=None
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """MatchAll as (starts, ends, pattern_ids) numpy arrays."""
+        """MatchAll as (starts, ends, pattern_ids) numpy arrays. Pass a
+        `dist.mesh.Mesh` (or 'auto') to shard the scan over its devices
+        and processes (dist/, exact cross-shard semantics)."""
         t, corpus = _unwrap(text)
+        m_ = self._resolve_mesh(mesh)
+        if m_ is not None:
+            return self._sharded_arrays(t, m_)
         if (self.engine == "posnfa"
                 and len(t) > self.config.posnfa_chunk_bytes):
             # The exact chunked sweep, which carries the suffix element
@@ -869,13 +894,17 @@ class Pattern:
                      t_all.elapsed, n_cand=n_cand, t_sel=t_sel.elapsed)
         return out
 
-    def tokenize(self, text: TextLike) -> List[Tuple[int, int, int]]:
+    def tokenize(self, text: TextLike,
+                 mesh=None) -> List[Tuple[int, int, int]]:
         """MatchAll with pattern ids: (start, end, pattern_id) triples."""
-        starts, ends, pids = self.match_all_arrays(text)
+        starts, ends, pids = self.match_all_arrays(text, mesh=mesh)
         return list(zip(starts.tolist(), ends.tolist(), pids.tolist()))
 
-    def match_all_count(self, text: TextLike) -> int:
+    def match_all_count(self, text: TextLike, mesh=None) -> int:
         t, corpus = _unwrap(text)
+        m_ = self._resolve_mesh(mesh)
+        if m_ is not None:
+            return self._sharded_count(t, m_)
         if self._oracle:
             with Timer() as t_all:
                 cnt = self._oracle.match_all_count(self._oracle_bytes(t))
@@ -972,6 +1001,98 @@ class Pattern:
         self._record("match_all_count_each", len(t), int(counts.sum()),
                      t_dev, t_all.elapsed, n_cand=n_cand, t_sel=t_sel)
         return counts
+
+    # -- Sharded (multi-device, multi-process) execution --------------------
+
+    def _resolve_mesh(self, mesh) -> Optional[Mesh]:
+        """None: one device. 'auto': a mesh of this process's cards
+        (dist.mesh.local_cuda_devices) when the mesh would hold more than
+        one shard over all processes (as the JAX package counts
+        jax.devices()), else None. A Mesh passes through; its axis must be
+        Config.mesh_axis."""
+        if mesh is None:
+            return None
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise CompileError(f"unknown mesh spec {mesh!r}")
+            procs = (torch.distributed.get_world_size()
+                     if torch.distributed.is_available()
+                     and torch.distributed.is_initialized() else 1)
+            local = (len(local_cuda_devices())
+                     if torch.cuda.is_available() else 0)
+            if local * procs <= 1:
+                return None
+            return make_mesh(axis=self.config.mesh_axis)
+        if not isinstance(mesh, Mesh):
+            raise CompileError(
+                f"mesh must be None, 'auto' or a rejit_tpu_torch.dist.mesh."
+                f"Mesh, not {type(mesh).__name__}")
+        if mesh.axis != self.config.mesh_axis:
+            raise CompileError(
+                f"mesh axis {mesh.axis!r} is not Config.mesh_axis "
+                f"{self.config.mesh_axis!r}")
+        return mesh
+
+    def _sharded_kw(self, mesh: Mesh) -> dict:
+        """The sharded DFA route's keywords (dist/sharded.py): the fused
+        kernel per shard where the pattern's own route rule takes it for
+        the mesh's devices (on the card when the tables fit it; anywhere
+        under schain_fused='on'), else the split kernels."""
+        if self._use_schain_fused(mesh.devices[0].type):
+            return dict(engine="fused", block=self.fused_block,
+                        use_ff=self.config.use_ff)
+        return dict(engine="split", block=self.config.block_size)
+
+    def _mesh_tables(self, mesh: Mesh) -> dict:
+        """The DFA tables on every shard device of `mesh` (kept for later
+        calls; the pattern's own device reuses `self.ct`)."""
+        tables = self._dfa_tables()
+        self._cts.setdefault(self.ct.packed.device, self.ct)
+        return dsh.tables_on_mesh(tables, mesh, self._cts)
+
+    def _sharded_arrays(self, t: np.ndarray, mesh: Mesh):
+        """MatchAll arrays over a mesh. Overlap-free literal sets take the
+        bounded-window literal route (dist/literal.py); every other engine
+        but posnfa and the oracle takes the DFA tables' exact cross-shard
+        route (dist/sharded.py)."""
+        if self.engine == "literal" and self.info.overlap_free:
+            with Timer() as t_all:
+                with Timer() as t_dev:
+                    sp = dlit.sharded_literal_spans(self.info.literals, t,
+                                                    mesh)
+                with Timer() as t_sel:
+                    out = self._decode_ends_pids(t, sp)
+            self._record("match_all", len(t), len(out[0]), t_dev.elapsed,
+                         t_all.elapsed, n_cand=len(sp), t_sel=t_sel.elapsed)
+            return out
+        if self._oracle or self.engine == "posnfa":
+            raise CompileError(
+                "sharded execution needs DFA tables; this pattern runs on "
+                f"the {self.engine} engine (DFA blowup). Drop mesh= or "
+                "raise Config(max_dfa_states=...)."
+            )
+        with Timer() as t_all:
+            with Timer() as t_dev:
+                pos, end, pid = dsh.sharded_candidates(
+                    self._dfa_tables(), t, mesh, cts=self._mesh_tables(mesh),
+                    **self._sharded_kw(mesh))
+            with Timer() as t_sel:
+                out = select.match_all_candidates(
+                    pos, end, pid, native=self._use_native())
+        self._record("match_all", len(t), len(out[0]), t_dev.elapsed,
+                     t_all.elapsed, n_cand=len(pos), t_sel=t_sel.elapsed)
+        return out
+
+    def _sharded_count(self, t: np.ndarray, mesh: Mesh) -> int:
+        if self.engine == "literal" and self.info.overlap_free:
+            with Timer() as t_all:
+                cnt = dlit.sharded_literal_count(self.info.literals, t, mesh)
+            self._record("match_all_count", len(t), cnt, t_all.elapsed,
+                         t_all.elapsed)
+            return cnt
+        cnt = len(self._sharded_arrays(t, mesh)[0])
+        self.last_stats.op = "match_all_count"
+        return cnt
 
     # -- Streaming API (corpora larger than device memory) ------------------
 

@@ -47,10 +47,13 @@ user's `Config` means the same thing in both. The port reads `engine`
   on-disk cache (engine/cache.py; REJIT_TPU_CACHE_DIR, else
   ~/.cache/rejit_tpu), in the JAX package's file format;
 - `print_tree` / `print_tables`: `Pattern` prints each parsed pattern's
-  tree and the compiled DFA tables, as the JAX package does.
+  tree and the compiled DFA tables, as the JAX package does;
+- `mesh_axis`: the axis of the meshes that `mesh=` takes (dist/mesh.py):
+  `mesh='auto'` builds its mesh along it, and a Mesh along another axis
+  raises CompileError.
 Every other field is accepted and has no effect in the port yet: the
 TPU-only knobs (`schain`, `schain_rolled`, `fused_chl`, `interpret`,
-`matmul`) and `mesh_axis`, whose `mesh=` path a later port slice brings.
+`matmul`).
 """
 from __future__ import annotations
 

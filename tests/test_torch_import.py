@@ -18,7 +18,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax|from\s+jax[\s.]|import\s+rejit_tpu(?!_torch)"
-    r"|from\s+rejit_tpu(?!_torch)[\s.]|import\s+bench\b|from\s+bench[\s.])"
+    r"|from\s+rejit_tpu(?!_torch)[\s.]|import\s+bench\b|from\s+bench[\s.]"
+    r"|import\s+tools\b|from\s+tools[\s.])"
     r"|\brejit_tpu\.[A-Za-z]",
     re.M,
 )
@@ -47,10 +48,17 @@ def test_import_loads_no_jax_and_no_rejit_tpu():
         "import rejit_tpu_torch.engine.reference\n"
         "import rejit_tpu_torch.compile.debug\n"
         "import rejit_tpu_torch.utils.corpus\n"
+        "import rejit_tpu_torch.dist.mesh\n"
+        "import rejit_tpu_torch.dist.sharded\n"
+        "import rejit_tpu_torch.dist.literal\n"
+        "import rejit_tpu_torch.dist.multiproc_worker\n"
+        "import rejit_tpu_torch.runtime.init\n"
+        "import rejit_tpu_torch.tools.launch_multihost\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib') "
         "or m == 'rejit_tpu' or m.startswith('rejit_tpu.') "
-        "or m == 'bench' or m.startswith('bench.'))\n"
+        "or m == 'bench' or m.startswith('bench.') "
+        "or m == 'tools' or m.startswith('tools.'))\n"
         "print(','.join(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -82,11 +90,14 @@ def test_no_source_names_jax_or_rejit_tpu():
 def test_forbidden_pattern_catches_imports():
     for line in ("import jax", "from jax import numpy", "import rejit_tpu",
                  "from rejit_tpu.compile import ir", "x = rejit_tpu.Pattern",
-                 "from bench.harness import tchain", "import bench.corpus"):
+                 "from bench.harness import tchain", "import bench.corpus",
+                 "import tools.jrep", "from tools import launch_multihost"):
         assert _FORBIDDEN.search(line), line
     for line in ("import rejit_tpu_torch", "from rejit_tpu_torch import api",
                  "see rejit_tpu/kernels/dfa_pallas.py",
                  "see bench/gather_probe.py", "import benchmarks_of_mine",
+                 "from .tools import launch_multihost",
+                 "from rejit_tpu_torch.tools import launch_multihost",
                  "Error types for rejit_tpu."):
         assert not _FORBIDDEN.search(line), line
 
