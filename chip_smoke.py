@@ -5,10 +5,13 @@ Run from the repository root, on a machine with an NVIDIA card and nvcc:
 
     python3 chip_smoke.py            # everything (what the chip check runs)
     python3 chip_smoke.py --quick    # build, checks and main paths; no timing
-    python3 chip_smoke.py --b1-times [--port-root DIR]
-        # the split route's dfa_phase1/dfa_phase3 rows only, for the port
-        # in DIR (default: this checkout); DIR may hold an older checkout
-        # whose kernels took int32 views, for a before column
+    python3 chip_smoke.py --times b1|scan [--port-root DIR]
+        # one kernel's rows only, for the port in DIR (default: this
+        # checkout), for a before column: b1, the split route's
+        # dfa_phase1/dfa_phase3 (DIR may hold an older checkout whose
+        # kernels took int32 views); scan, scan1d at 10 M and 256 Mi
+        # (events, then the profiler) and the classrun and classlit
+        # paths' device_time_s at 10 MB and 256 MiB
 
 It builds the port's CUDA kernels from the sources in the checkout (one nvcc
 per source, all started together), then:
@@ -36,11 +39,16 @@ per source, all started together), then:
    skip; literal_spans at caps 0, 2, 4 and 16 for sets of 1, 3, 9 and 15
    literals of 1 to 128 bytes and a set of 1-, 3-, 4-, 5- and 8-byte
    literals, at n = P, P-3, a row edge, a block edge, 1 and 0, and for the
-   12 keywords on the main text; scan1d in both directions on random,
-   monotone and constant int32 around its tile size and at the main path's
-   length; schain_fused with emit_f (L and L+I modes: L, I, G, and F on
-   boundaries 0..n, F past n apart) on the same matrix of fused cases,
-   from the begin context and from another start state at byte 0, and
+   12 keywords on the main text; scan1d in both directions on random
+   (the whole int32 range), monotone and constant int32, on small values
+   with INT_MIN and INT_MAX planted anywhere, in the first tile and in
+   the last, at 1, 31, around one and two of its tiles, 1,000,003, the
+   main path's length and 256 Mi, on offset views x[1:] (4 bytes off 16)
+   and 200 times in a row at one tile, a few tiles and 10 M, with one
+   counted call a wrapper call; schain_fused with emit_f (L and L+I
+   modes: L, I, G, and F on boundaries 0..n, F past n apart) on the same
+   matrix of fused cases, from the begin context and from another start
+   state at byte 0, and
    dfa_phase3 with such a start state on the 8 sets;
 3. runs the main path, `Pattern(r"\\b\\w+ing\\b").match_all_arrays(text)`
    on the 10 MB config-3 corpus, with the launch counters set to 0 just
@@ -149,9 +157,11 @@ per source, all started together), then:
    dfa_phase1/3, plain versions, suffix scan, l_arrays_device and its
    peak memory, the live work b1_work counts and the bounds from it) on
    config 3 at both sizes, the 250-word alternation at 10 MB (with its
-   match_all_arrays wall) and config 3's table on 10 MB of letters; last,
-   schain_fused per launch and the posnfa engine's device operations on
-   one 2 MiB chunk (torch.profiler).
+   match_all_arrays wall) and config 3's table on 10 MB of letters; the
+   classrun and classlit paths' device_time_s at both sizes; last,
+   schain_fused per launch, the posnfa engine's device operations on one
+   2 MiB chunk and scan1d at 10 M and 256 Mi (torch.profiler; scan1d must
+   show one kernel a call, also under --quick).
 
 Every result is a JSON line; the `{"kernels": [...]}` line and the card's
 nvidia-smi line come just before the last line, which is
@@ -385,7 +395,7 @@ def time_split_sets(rt, words, reps: int) -> list:
 
 
 def b1_times(rt, reps: int) -> None:
-    """--b1-times: the split route's rows only (time_b1) for the imported
+    """--times b1: the split route's rows only (time_b1) for the imported
     port: config 3 at 10 MB and 256 MiB and time_split_sets, one line
     each."""
     from rejit_tpu_torch.utils.corpus import make_corpus
@@ -954,25 +964,165 @@ def literal_spans_vs_plain(xc, text: np.ndarray, sets, caps=(0, 2, 4, 16),
             "max_row_count": max_count}
 
 
-def scan_vs_plain(sc, rng, sizes) -> dict:
-    """Max |scan1d - plain| in both directions on random (full int32
-    range), increasing, decreasing and constant inputs of each size."""
+SCAN_KINDS = ("random", "increasing", "decreasing", "constant",
+              "int_extremes", "extremes_first_tile", "extremes_last_tile")
+SCAN_REPEATS = 200
+
+
+def scan_input(P: int, kind: str, tile: int, g) -> torch.Tensor:
+    """An int32 input of length P on the card (SCAN_KINDS): random over the
+    whole int32 range, that sorted up or down, constant, small values with
+    INT_MIN and INT_MAX planted at random places, or small values with
+    both extremes inside the first or the last tile of `tile` elements."""
+    if kind == "constant":
+        return torch.full((P,), -7, dtype=torch.int32, device=DEV)
+    if kind in ("random", "increasing", "decreasing"):
+        x = torch.randint(-2**31, 2**31, (P,), dtype=torch.int32, device=DEV,
+                          generator=g)
+        if kind != "random":
+            x = torch.sort(x, descending=kind == "decreasing").values
+        return x
+    x = torch.randint(-1000, 1000, (P,), dtype=torch.int32, device=DEV,
+                      generator=g)
+    lo, hi = {"int_extremes": (0, P),
+              "extremes_first_tile": (0, min(P, tile)),
+              "extremes_last_tile": (max(0, P - tile), P)}[kind]
+    at = torch.randint(lo, hi, (6,), device=DEV, generator=g)
+    x[at[:3]] = -2**31
+    x[at[3:]] = 2**31 - 1
+    return x
+
+
+def scan_vs_plain(sc, sizes, seed: int) -> dict:
+    """Max |scan1d - plain| in both directions on every SCAN_KINDS input of
+    each size; on offset views x[1:] (4 bytes off a 16-byte boundary) of
+    three sizes; and SCAN_REPEATS times in a row at one tile, a few tiles
+    and 10 M elements, every call compared (a look-back race shows only
+    now and then). Also checks that each wrapper call counted exactly one
+    scan1d call."""
+    tile = sc._kernels().scan1d_tile_elems()
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    sizes = sorted(set(sizes) | {tile - 1, tile, tile + 1, 2 * tile - 1,
+                                 2 * tile, 2 * tile + 1})
     err, calls = 0, 0
+    sc.reset_launches()
+
+    def both(x):
+        nonlocal err, calls
+        err = max(err, max_abs_err(sc.rcummin(x), sc.rcummin_plain(x)),
+                  max_abs_err(sc.cummax(x), sc.cummax_plain(x)))
+        calls += 2
+
     for P in sizes:
-        for kind in ("random", "increasing", "decreasing", "constant"):
-            if kind == "constant":
-                x = np.full(P, -7, dtype=np.int32)
-            else:
-                x = rng.integers(-2**31, 2**31, size=P, dtype=np.int64)
-                x = x.astype(np.int32)
-                if kind != "random":
-                    x = np.sort(x)[::-1 if kind == "decreasing" else 1].copy()
-            xd = torch.from_numpy(x).to(DEV)
-            err = max(err, max_abs_err(sc.rcummin(xd), sc.rcummin_plain(xd)),
-                      max_abs_err(sc.cummax(xd), sc.cummax_plain(xd)))
+        for kind in SCAN_KINDS:
+            both(scan_input(P, kind, tile, g))
+    offsets = (tile + 2, 5 * tile + 7, 10_000_001)
+    for P in offsets:
+        for kind in ("random", "extremes_first_tile", "extremes_last_tile"):
+            x = scan_input(P, kind, tile, g)[1:]
+            check(x.data_ptr() % 16 == 4, "the view is not 4 bytes off")
+            both(x)
+    repeats = (tile, 5 * tile + 3, 10_000_000)
+    differing = 0
+    for P in repeats:
+        x = scan_input(P, "random", tile, g)
+        want = sc.rcummin_plain(x), sc.cummax_plain(x)
+        for _ in range(SCAN_REPEATS):
+            got = sc.rcummin(x), sc.cummax(x)
+            differing += sum(not torch.equal(a, b) for a, b in zip(got, want))
             calls += 2
     torch.cuda.synchronize()
-    return {"max_abs_err": err, "calls": calls, "sizes": list(sizes)}
+    err = max(err, differing)
+    check(sc.LAUNCHES["scan1d"] == calls,
+          f"scan1d counted {sc.LAUNCHES['scan1d']} for {calls} calls")
+    return {"max_abs_err": err, "calls": calls, "tile": tile,
+            "sizes": sizes,
+            "kinds": list(SCAN_KINDS), "offset_view_sizes": list(offsets),
+            "repeated_sizes": list(repeats), "repeats": SCAN_REPEATS,
+            "repeated_calls_differing": differing,
+            "launches_per_call": sc.LAUNCHES["scan1d"] / calls}
+
+
+def scan_profile(sc, reps: int) -> dict:
+    """scan1d by torch.profiler (run after every CUDA-event timing): at 10 M
+    and 256 Mi elements, both directions, the scan1d kernels a call (one),
+    the memsets a call and the device ms a call of each; the bound beside.
+    A launch-bound time by the events shows here as a shorter device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for n in (10_000_000, 1 << 28):
+        x = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32,
+                          device=DEV)
+        for op in ("rcummin", "cummax"):
+            fn = getattr(sc, op)
+            fn(x)
+            torch.cuda.synchronize()
+            try:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        fn(x)
+                    torch.cuda.synchronize()
+            except Exception as exc:  # the measurement only
+                out[f"{op}_{n}"] = {"error": repr(exc)}
+                continue
+            row = {"kernels_a_call": 0.0, "kernel_ms": 0.0,
+                   "memsets_a_call": 0.0, "memset_ms": 0.0,
+                   "bound_ms": 8 * n / HBM_BYTES_PER_S * 1e3}
+            for e in prof.key_averages():
+                us = getattr(e, "device_time_total", None)
+                if us is None:
+                    us = getattr(e, "cuda_time_total", 0)
+                # Device operations only (not the runtime API's calls).
+                key = ("kernel" if "scan1d" in e.key else "memset"
+                       if "memset" in e.key.lower() else None)
+                if key and us > 0:
+                    row[key + "s_a_call"] += e.count / reps
+                    row[key + "_ms"] += us / reps / 1e3
+            out[f"{op}_{n}"] = row
+        del x
+    return out
+
+
+def scan_paths_device_s(rt, text: bytes, label: str, reps: int) -> dict:
+    """last_stats.device_time_s (median of reps calls after a warm one) of
+    match_all_arrays on the classrun and classlit paths (B3_PATTERNS)."""
+    res = {"label": label, "n": len(text)}
+    for name, (pat, _) in B3_PATTERNS.items():
+        bp = rt.Pattern(pat, device=DEV)
+        bp.match_all_arrays(text)
+        dev = []
+        for _ in range(reps):
+            bp.match_all_arrays(text)
+            dev.append(bp.last_stats.device_time_s)
+        res[name + "_device_s"] = float(np.median(dev))
+        res[name + "_device_s_all"] = dev
+    return res
+
+
+def scan_times(rt, reps: int) -> None:
+    """--times scan: scan1d's rows only, for the imported port: the kernel
+    at 10 M and 256 Mi elements (CUDA events, both directions), the
+    classrun and classlit paths' device_time_s at 10 MB and 256 MiB of
+    config 3, then the profiler's scan1d device time (scan_profile)."""
+    from rejit_tpu_torch.kernels import scan_cuda as sc
+    from rejit_tpu_torch.utils.corpus import make_corpus
+
+    for n, r in ((10_000_000, reps), (1 << 28, max(2, reps // 4))):
+        x = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32,
+                          device=DEV)
+        emit({"phase": "scan_times", "n": n,
+              "rcummin_ms": time_ms(lambda: sc.rcummin(x), r),
+              "cummax_ms": time_ms(lambda: sc.cummax(x), r),
+              "bound_ms": 8 * n / HBM_BYTES_PER_S * 1e3})
+        del x
+    for size, label, r in ((10_000_000, "10MB", 5), (256 << 20, "256MiB", 3)):
+        text = make_corpus(size, seed=2, needle=b"matching", density=0.01)
+        emit({"phase": "scan_paths_device_s",
+              **scan_paths_device_s(rt, text, label, r)})
+        del text
+    emit({"phase": "scan_profile", **scan_profile(sc, reps)})
 
 
 def literal_compares(rows: torch.Tensor, n: int, lits) -> int:
@@ -2279,8 +2429,9 @@ def main() -> int:
           "sms": props.multi_processor_count, "build_s": build_s,
           "ptxas": {k: v["ptxas"] for k, v in built.items()},
           "port": rt.__file__})
-    if "--b1-times" in args:
-        b1_times(rt, reps=20)
+    if "--times" in args:
+        {"b1": b1_times, "scan": scan_times}[
+            args[args.index("--times") + 1]](rt, reps=20)
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -2435,10 +2586,10 @@ def main() -> int:
     emit({"phase": "literal_spans_vs_plain", "sets": "keywords on the main "
           "text", **e})
     errs["literal_spans"] = max(errs["literal_spans"], e["max_abs_err"])
-    # scan1d: both directions at lengths around its 4096-element tile and
-    # at the main path's length.
-    e = scan_vs_plain(scn, rng, (1, 31, 4095, 4096, 4097, 1_000_003,
-                                 len(main_text)))
+    # scan1d: both directions at lengths around its tile, 256 Mi and the
+    # main path's length, offset views, repeated calls.
+    e = scan_vs_plain(scn, (1, 31, 4095, 4096, 4097, 1_000_003,
+                            len(main_text), 1 << 28), seed=7)
     emit({"phase": "scan1d_vs_plain", **e})
     errs["scan1d"] = e["max_abs_err"]
     check(all(v == 0 for v in errs.values()),
@@ -2706,6 +2857,8 @@ def main() -> int:
         tl10 = time_literal_engines(rt, main_text, "10MB", reps=20,
                                     walls=True)
         emit({"phase": "times_literal_engines", **tl10})
+        emit({"phase": "scan_paths_device_s",
+              **scan_paths_device_s(rt, main_text, "10MB", 5)})
         tc10 = time_config1(rt, c1_text, "10MiB", reps=10)
         emit({"phase": "times_config1", **tc10})
         for label, res in time_split_sets(rt, words, reps=10):
@@ -2721,6 +2874,8 @@ def main() -> int:
         del big_out
         tl256 = time_literal_engines(rt, big, "256MiB", reps=5, walls=False)
         emit({"phase": "times_literal_engines", **tl256})
+        emit({"phase": "scan_paths_device_s",
+              **scan_paths_device_s(rt, big, "256MiB", 2)})
         del big
         big1 = make_corpus(256 << 20, seed=0, needle=b"packet",
                            density=0.002)
@@ -2741,6 +2896,11 @@ def main() -> int:
             emit({"phase": "posnfa_launches", "pattern": label,
                   "chunk_bytes": POSNFA_CHUNK,
                   **posnfa_launches(pt, block, POSNFA_CHUNK)})
+    # scan1d by the profiler, after every timing: one kernel a call.
+    sprof = scan_profile(scn, 20)
+    emit({"phase": "scan_profile", **sprof})
+    check(all(r.get("kernels_a_call") == 1 for r in sprof.values()),
+          f"scan1d kernels a call: {sprof}")
 
     kernels = []
     path_launches = {

@@ -42,6 +42,14 @@ package does, see `choose_engine`):
 engines (B3, B4): 'auto' takes them on the card, 'on' on either device
 (the kernels' plain versions on the CPU), 'off' takes the torch-op routes.
 
+`Config(matmul='on')` asks for the JAX package's one-hot matmul DFA
+engine, which the port does not have yet: the DFA engine keeps its routes
+(the same spans) where the tables would fit that engine, and raises its
+CompileError where they would not (Q or `block_size` above 256, or C*Q*Q
+above 2^20), on the calls where the JAX package raises: the DFA engine's
+single-device matching, unless `schain_fused='on'` or `schain='on'` take
+the tables first. The stream calls and `mesh=` never reach that engine.
+
 A DFA blowup under automatic engine choice never hard-fails a supported
 pattern (`Pattern._blowup_fallback`): subset construction again at 4x the
 budgets, then the posnfa engine (unless `Config.posnfa='off'`), then the
@@ -105,6 +113,9 @@ LIT_GRAIN = 1024    # padding grain of the literal engine's texts
 # Bounded class runs with Q ~ hi + 2 at or above this go to the
 # elementwise engines on the card (the JAX package's measured crossover).
 ELEM_MIN_Q = 48
+# The JAX package's matmul engine takes Q and block_size up to this
+# (engine/matmul.py MAX_BLOCK: step indices stay exact in bf16).
+MATMUL_MAX_BLOCK = 256
 
 
 def text_to_u8(text: TextLike) -> np.ndarray:
@@ -469,6 +480,24 @@ class Pattern:
             return True
         return fits and (device_type or self.device.type) == "cuda"
 
+    def _refuse_matmul(self) -> None:
+        """Raise where the JAX package's `_use_matmul` raises: under
+        Config(matmul='on'), for tables the matmul engine cannot hold,
+        unless the fused or select-chain engine is forced and takes them
+        first. Called on the DFA engine's single-device device calls."""
+        cfg = self.config
+        if cfg.matmul != "on" or "on" in (cfg.schain_fused, cfg.schain):
+            return
+        Q, C = self.tables.n_states, self.tables.n_classes
+        if (Q <= MATMUL_MAX_BLOCK and cfg.block_size <= MATMUL_MAX_BLOCK
+                and C * Q * Q <= 1 << 20):
+            return
+        raise CompileError(
+            f"pattern too large for the matmul engine (Q={Q}, C={C}, "
+            f"block={cfg.block_size}); use Config(matmul='off') to fall back "
+            "to the DFA engines"
+        )
+
     def _use_kernels(self) -> bool:
         """Whether the literal and elementwise engines take their kernel
         routes (Config.pallas): on the card under 'auto', anywhere under
@@ -564,6 +593,7 @@ class Pattern:
                 ext, n, lits=self.info.literals,
                 pids=self.info.literal_pids, P=P,
             )
+        self._refuse_matmul()
         if self.fused:
             return schain_cuda.l_arrays_device_staged(
                 self.ct, self._padded_text(text, corpus, self.fused_block), n,
@@ -932,6 +962,7 @@ class Pattern:
         if self.info.overlap_free and self.fused:
             # Overlap-free: every candidate is a match, so the count is a
             # pure device reduction and no L/I array is written.
+            self._refuse_matmul()
             with Timer() as t_all:
                 cnt = int(schain_cuda.count_device_staged(
                     self.ct, self._padded_text(t, corpus, self.fused_block),

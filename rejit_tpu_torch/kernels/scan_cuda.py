@@ -7,23 +7,25 @@ Kernel (csrc/scan1d.cu, built by kernels/build.py):
           through rcummin and cummax): the reverse cumulative min and the
           forward cumulative max of an int32 array of any length. The TPU
           kernel carried the running value across its sequential grid; the
-          CUDA kernel makes the carry explicit (tile aggregates, one scan of
-          them, then each tile's scan from its carry-in: three launches,
-          counted as one call), so no result depends on block order.
+          CUDA kernel is a single-pass chained scan with decoupled
+          look-back: one launch a call, after one memset of its status
+          words, each block taking the next tile in scan order from an
+          atomic counter, so no result depends on block order.
 
 The classrun engine takes one reverse cummin per call and the classlit
 engine a forward cummax and a reverse cummin (kernels/classrun.py,
 kernels/classlit.py).
 
-Bound on an H100 (3.35 TB/s): 8 B per element, 4 read and 4 written; the
-kernel moves 12 (the tile is read twice). Measured times beside the bound
-are in PERF.md (from chip_smoke.py).
+Bound on an H100 (3.35 TB/s): 8 B per element, 4 read and 4 written, which
+is what the kernel moves. Measured times beside the bound are in PERF.md
+(from chip_smoke.py).
 
-Each wrapper (`rcummin`, `cummax`) checks dtype, rank and contiguity. On
-CPU tensors it runs the plain version (`torch.cummin` / `torch.cummax`); on
-CUDA tensors it launches the kernel on the current stream, or raises. It
-never falls back. `LAUNCHES` counts kernel calls (plain runs are not
-counted).
+Each wrapper (`rcummin`, `cummax`) checks dtype, rank and contiguity; an
+offset view such as `x[1:]` is taken (the kernel then loads and stores
+element by element instead of 16 bytes at a time). On CPU tensors it runs
+the plain version (`torch.cummin` / `torch.cummax`); on CUDA tensors it
+launches the kernel on the current stream, or raises. It never falls
+back. `LAUNCHES` counts kernel calls (plain runs are not counted).
 """
 from __future__ import annotations
 
@@ -53,6 +55,8 @@ def _kernels() -> ctypes.CDLL:
         lib.scan1d.argtypes = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                                _P]
         lib.scan1d.restype = ctypes.c_int
+        lib.scan1d_scratch_words.argtypes = [ctypes.c_longlong]
+        lib.scan1d_scratch_words.restype = ctypes.c_longlong
         lib.scan1d_tile_elems.argtypes = []
         lib.scan1d_tile_elems.restype = ctypes.c_int
         lib.scan1d_error_string.argtypes = [ctypes.c_int]
@@ -90,8 +94,9 @@ def _scan(x: torch.Tensor, op: str) -> torch.Tensor:
     out = torch.empty_like(x)
     if P == 0:
         return out
-    ntiles = -(-P // lib.scan1d_tile_elems())
-    scratch = torch.empty(2 * ntiles, dtype=torch.int32, device=dev)
+    # The tile counter's line, then a status line a tile (64-bit words).
+    scratch = torch.empty(lib.scan1d_scratch_words(P), dtype=torch.int64,
+                          device=dev)
     with torch.cuda.device(dev):
         err = lib.scan1d(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), P,
                          _OPS[op], torch.cuda.current_stream(dev).cuda_stream)

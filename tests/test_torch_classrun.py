@@ -41,6 +41,12 @@ def _scan_input(kind, P, seed):
         return rng.integers(-(1 << 30), 1 << 30, size=P, dtype=np.int32)
     if kind == "monotone":
         return np.sort(rng.integers(-1000, 1 << 30, size=P)).astype(np.int32)
+    if kind == "full_range":
+        # The whole int32 range, with both scans' identities planted.
+        x = rng.integers(-2**31, 2**31, size=P, dtype=np.int64)
+        x[rng.integers(0, P, size=4)] = -2**31
+        x[rng.integers(0, P, size=4)] = 2**31 - 1
+        return x.astype(np.int32)
     return np.full(P, 1 << 30, dtype=np.int32)
 
 
@@ -57,8 +63,12 @@ def test_scan_plain_equals_pallas(kind, steps):
         np.asarray(scan1d.cummax(xj, interpret=True)))
 
 
-@pytest.mark.parametrize("P", [1, 31, 4097, 10_001])
-@pytest.mark.parametrize("kind", ["random", "monotone", "constant"])
+# Tile edges of the scan1d kernel's geometries (4096, 8192 and 16384
+# elements a tile) among the lengths.
+@pytest.mark.parametrize("P", [1, 31, 4095, 4096, 4097, 8193, 10_001,
+                               16_385, 32_769])
+@pytest.mark.parametrize("kind", ["random", "monotone", "constant",
+                                  "full_range"])
 def test_scan_plain_equals_lax_at_any_length(kind, P):
     x = _scan_input(kind, P, P)
     xt, xj = torch.from_numpy(x), jnp.asarray(x)
