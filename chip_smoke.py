@@ -149,7 +149,33 @@ per source, all started together), then:
    cuda:0) and a one-rank NCCL group (8 shards), each printing MULTIPROC
    OK; outside --quick the walls of the single-device call against D = 1
    and D = 8 (median of 3);
-13. times the kernels, their plain versions, the library calls, the split
+13. counts the DFA routes' launches under each route setting (`route_phase`,
+   config 3's first MiB, each call equal to `re`): the default config and
+   `schain_fused='on'` with `matmul='on'` launch schain_fused alone,
+   `matmul='on'` no kernel, `schain='on'`, `pallas='on'` and
+   `pallas='off'` the split kernels alone (the fused route stands aside,
+   as in the JAX package), `match_all_stream` under each the same kernels
+   (the split chunk engine under `matmul='on'`), and `mesh=` the same
+   launches with `matmul='on'` as without it;
+14. runs the matmul engine (`matmul_phase`; engine/matmul.py, bf16 torch
+   products): L/I bit-equal to the split route and the fused kernel on
+   config 3's and the tokenizer's tables over the 10 MB main text and on
+   a 40-word alternation (Q = 179, two slabs) over 1 MiB, no kernel
+   launched, and `Config(matmul='on')` spans equal to `re`;
+15. runs the on-card gate in this process
+   (`rejit_tpu_torch/tools/verify_cuda.py --subset 1`): the DFA routes'
+   L/I bit-equal at 1 MiB and all 140 cases of the conformance corpus
+   under automatic choice, `engine='dfa'` with `schain_fused` on and off,
+   `matmul='on'` and `mesh=` (8 shards);
+16. runs the tools and samples on the card: jrep (`jrep_phase`) over a
+   tree of 64 files of 1 MiB of config-3 text and small ^ / $ files,
+   batched, per file, -c, --count-matches, --stream and anchors, each
+   equal to Python `re`, and over the port's sources equal to its CPU
+   run; profile_match at 10 MiB in a process of its own, whose Chrome
+   trace must parse and name the schain_fused kernels; basic equal to its
+   CPU run and regexdna at 50,000,000 bases equal to the counts and
+   lengths `replace_phase` held against `re`;
+17. times the kernels, their plain versions, the library calls, the split
    route's stages and the entry points' walls (host bytes and staged
    corpus) with CUDA events and the host clock, on the 10 MB text and on
    a 256 MiB text from the same generator, and config 1 at 10 MiB and
@@ -158,10 +184,14 @@ per source, all started together), then:
    peak memory, the live work b1_work counts and the bounds from it) on
    config 3 at both sizes, the 250-word alternation at 10 MB (with its
    match_all_arrays wall) and config 3's table on 10 MB of letters; the
-   classrun and classlit paths' device_time_s at both sizes; last,
+   matmul engine's L/I device time and peak memory beside the fused and
+   split routes at both sizes, with the match_all_arrays wall under
+   `matmul='on'`; the classrun and classlit paths' device_time_s at both
+   sizes; last,
    schain_fused per launch, the posnfa engine's device operations on one
-   2 MiB chunk and scan1d at 10 M and 256 Mi (torch.profiler; scan1d must
-   show one kernel a call, also under --quick).
+   2 MiB chunk, the matmul engine's device time by kernel at 10 MB, and
+   scan1d at 10 M and 256 Mi (torch.profiler; scan1d must show one kernel
+   a call, also under --quick).
 
 Every result is a JSON line; the `{"kernels": [...]}` line and the card's
 nvidia-smi line come just before the last line, which is
@@ -278,6 +308,15 @@ CONFIG5_SIZE = 1 << 30
 MESH_CONFIG3_SIZE = 256 << 20
 MESH_SMALL_SIZE = 10_000_000
 MESH_WORKER_TIMEOUT_S = 300
+# The DFA routes' launch counts, the matmul engine, the tools and samples.
+ROUTE_SIZE = 1 << 20       # config 3's first MiB: the route counts' text
+ROUTE_CHUNK = 256 << 10    # the stream's chunk in the route counts
+MATMUL_WORDS = (3, 40)     # word_set(default_rng(3), 40): Q = 179, C = 27
+MATMUL_WORDS_SIZE = 1 << 20
+JREP_FILES = 64            # files of JREP_FILE_BYTES of config-3 text
+JREP_FILE_BYTES = 1 << 20
+JREP_LINE_WORDS = 12       # words a line of the jrep tree's files
+PROFILE_SIZE_MB = 10
 
 
 START = time.perf_counter()
@@ -1982,7 +2021,8 @@ def replace_phase(rt, main_text: bytes, reset, launches, only,
             "stats": stats_split(py.last_stats)}
     res["steps"] = steps
     emit({"phase": "replace", **res})
-    return {"schain_fused": ls, "literal_spans": li}, errs
+    checked = {"counts": res["counts"], "lengths": res["lengths"]}
+    return {"schain_fused": ls, "literal_spans": li}, errs, checked
 
 
 def select_phase(rt, reset, launches, only, quick: bool) -> dict:
@@ -2380,6 +2420,441 @@ def mesh_phase(rt, root: str, main_text: bytes, words, reset, launches,
                 pr.kill()
                 pr.wait()
     return total, errs
+
+
+def route_phase(rt, main_text: bytes, reset, launches, only) -> dict:
+    """Which kernels each DFA route setting launches, on config 3's
+    pattern over the main text's first MiB (counts set to 0 just before
+    each call, read just after): the default config and schain_fused='on'
+    with matmul='on' take schain_fused alone; matmul='on' no kernel (the
+    matmul engine's torch products); schain='on', pallas='on' and
+    pallas='off' the split kernels alone (the fused route stands aside
+    under 'auto', as in the JAX package); the stream under each setting
+    the same kernels as its single-device call (the matmul engine falls
+    to the split chunk engine there); mesh= the same launches with
+    matmul='on' as without it. Every call's spans equal `re`."""
+    from rejit_tpu_torch.dist.mesh import make_mesh
+
+    text = main_text[:ROUTE_SIZE]
+    want = re_spans(MAIN_PATTERN, text)
+    cases = {"default": ({}, "fused"),
+             "matmul_on": (dict(matmul="on"), "none"),
+             "schain_on": (dict(schain="on"), "split"),
+             "pallas_on": (dict(pallas="on"), "split"),
+             "pallas_off": (dict(pallas="off"), "split"),
+             "fused_on_with_matmul_on": (dict(schain_fused="on",
+                                              matmul="on"), "fused")}
+    kernels = {"fused": ("schain_fused",),
+               "split": ("dfa_phase1", "dfa_phase3"), "none": ()}
+    res = {}
+    for label, (cfg, route) in cases.items():
+        p = rt.Pattern(MAIN_PATTERN, rt.Config(**cfg), device=DEV)
+        check(p.engine == "dfa", f"route {label}: engine {p.engine}")
+        row = {"route": route}
+        for call in ("match_all_arrays", "match_all_stream"):
+            # The stream has no matmul engine: it takes the split kernels.
+            r = "split" if (call == "match_all_stream"
+                            and route == "none") else route
+            reset()
+            if call == "match_all_stream":
+                out = p.match_all_stream(text, chunk_bytes=ROUTE_CHUNK)
+            else:
+                out = p.match_all_arrays(text)
+            got = launches()
+            check(spans_of(out) == want, f"route {label} {call}: spans")
+            names = kernels[r]
+            check(only(got, **{k: got[k] for k in names})
+                  and all(got[k] > 0 for k in names),
+                  f"route {label} {call}: launches {got}, want {r}")
+            row[call] = got
+        res[label] = row
+    mesh = make_mesh([DEV] * MESH_D)
+    for label, cfg in (("mesh", {}), ("mesh_matmul_on", dict(matmul="on"))):
+        p = rt.Pattern(MAIN_PATTERN, rt.Config(**cfg), device=DEV)
+        reset()
+        out = p.match_all_arrays(text, mesh=mesh)
+        got = launches()
+        check(spans_of(out) == want, f"route {label}: spans")
+        res[label] = {"match_all_arrays": got}
+    check(res["mesh"] == res["mesh_matmul_on"]
+          and sum(res["mesh"]["match_all_arrays"].values()) > 0,
+          f"mesh= launches moved under matmul='on': {res['mesh']} "
+          f"{res['mesh_matmul_on']}")
+    emit({"phase": "routes", "n": len(text), "matches": len(want),
+          "equal_to_re": True, **res})
+    return res
+
+
+def matmul_words():
+    """The 40-word alternation of the matmul phase: 64 < Q <= 256 and
+    C*Q*Q <= 2^20 (C*Q past the fused kernel's 4096, so 'auto' takes the
+    split route for it)."""
+    seed, count = MATMUL_WORDS
+    return word_set(np.random.default_rng(seed), count)
+
+
+def matmul_phase(rt, main_text: bytes, reset, launches, only) -> dict:
+    """The matmul engine (Config(matmul='on'); engine/matmul.py, bf16
+    torch products, no kernel of the port): L/I bit-equal to the split
+    route (and to the fused kernel where it takes the tables) on config
+    3's and the tokenizer's tables over the 10 MB main text and on the
+    40-word alternation (Q = 179) over 1 MiB of letters with the words
+    planted; no kernel launched; config 3's spans through the API equal
+    to `re`."""
+    from rejit_tpu_torch.engine import matmul as mm
+    from rejit_tpu_torch.engine import pipeline
+    from rejit_tpu_torch.kernels import schain_cuda as sc
+
+    words = matmul_words()
+    wtext = planted_words_text(words, MATMUL_WORDS_SIZE, 4096)
+    res = {}
+    for label, pats, text in (("config3", MAIN_PATTERN, main_text),
+                              ("tokenizer", TOKENIZER, main_text),
+                              ("40-word alternation", b"|".join(words),
+                               wtext)):
+        ct = dfa_tables(rt, pats)
+        Q, C = ct.n_states, ct.n_classes
+        check(Q <= mm.MAX_BLOCK and C * Q * Q <= 1 << 20,
+              f"{label}: tables past the matmul engine")
+        t = padded(text, DEV)
+        n = len(text)
+        reset()
+        Lm, Im = mm.l_arrays_device_matmul(ct, t, n, block=K)
+        got = launches()
+        check(only(got), f"{label}: the matmul engine launched {got}")
+        Ls, Is = pipeline.l_arrays_device(ct, t, n, block=K)
+        check(torch.equal(Lm, Ls) and torch.equal(Im, Is),
+              f"{label}: matmul L/I differ from the split route")
+        row = {"n": n, "Q": Q, "C": C, "slab_blocks": mm.slab_blocks(Q),
+               "slabs": -(-(t.shape[0] // K) // mm.slab_blocks(Q)),
+               "candidates": int((Lm >= 0).sum()),
+               "equal_to_split": True}
+        if sc.fits(Q, C, ct.n_patterns):
+            Lf, If = sc.l_arrays_device_staged(ct, t, n, block=K)
+            If = If if If is not None else torch.where(Lf >= 0, 0, -1).to(
+                torch.int32)
+            check(torch.equal(Lm, Lf) and torch.equal(Im, If),
+                  f"{label}: matmul L/I differ from the fused kernel")
+            row["equal_to_fused"] = True
+        res[label] = row
+        del t, Lm, Im, Ls, Is
+    p = rt.Pattern(MAIN_PATTERN, rt.Config(matmul="on"), device=DEV)
+    check(not p.fused and p._use_matmul(), "matmul='on': route")
+    reset()
+    out = p.match_all_arrays(main_text)
+    got = launches()
+    check(only(got), f"matmul='on' match_all_arrays launched {got}")
+    check(spans_of(out) == re_spans(MAIN_PATTERN, main_text),
+          "matmul='on': spans differ from re")
+    res["api"] = {"n": len(main_text), "matches": len(out[0]),
+                  "launches": got, "equal_to_re": True}
+    emit({"phase": "matmul", **res})
+    return res
+
+
+def matmul_times(rt, pats, text: bytes, label: str, reps: int) -> dict:
+    """The matmul engine's L/I device time (CUDA events) and peak device
+    memory on the tables of `pats`, beside the fused (where it takes the
+    tables) and split routes on the same padded text, and
+    match_all_arrays' wall under matmul='on' (host bytes, median)."""
+    from rejit_tpu_torch.engine import matmul as mm
+    from rejit_tpu_torch.engine import pipeline
+    from rejit_tpu_torch.kernels import schain_cuda as sc
+
+    ct = dfa_tables(rt, pats)
+    t = padded(text, DEV)
+    n = len(text)
+    routes = {
+        "matmul": lambda: mm.l_arrays_device_matmul(ct, t, n, block=K),
+        "split": lambda: pipeline.l_arrays_device(ct, t, n, block=K),
+    }
+    if sc.fits(ct.n_states, ct.n_classes, ct.n_patterns):
+        routes["fused"] = lambda: sc.l_arrays_device_staged(ct, t, n,
+                                                            block=K)
+    res = {"label": label, "n": n, "Q": ct.n_states, "C": ct.n_classes}
+    for name, fn in routes.items():
+        res[name + "_ms"] = time_ms(fn, reps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        res[name + "_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    p = rt.Pattern(pats, rt.Config(engine="dfa", matmul="on"), device=DEV)
+    res["matmul_match_all_arrays_wall"] = wall_s(
+        lambda: p.match_all_arrays(text), reps)
+    return res
+
+
+def matmul_profile(rt, text: bytes, reps: int) -> dict:
+    """Where the matmul engine's device time goes on config 3's tables:
+    torch.profiler over `reps` calls, device ms and launches a call by
+    kernel (names cut at the first '<' or '('), the largest first. Run
+    after every CUDA-event timing: the profiler slows later launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rejit_tpu_torch.engine import matmul as mm
+
+    ct = dfa_tables(rt, MAIN_PATTERN)
+    t = padded(text, DEV)
+    n = len(text)
+    mm.l_arrays_device_matmul(ct, t, n, block=K)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            mm.l_arrays_device_matmul(ct, t, n, block=K)
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us <= 0:
+            continue
+        name = re.split(r"[<(]", e.key.replace("void ", ""), 1)[0].strip()
+        ms, calls = rows.get(name, (0.0, 0.0))
+        rows[name] = (ms + us / reps / 1e3, calls + e.count / reps)
+    top = sorted(rows.items(), key=lambda kv: -kv[1][0])
+    return {"n": n, "device_ms": sum(v[0] for v in rows.values()),
+            "launches": sum(v[1] for v in rows.values()),
+            "by_kernel": [{"name": k, "ms": v[0], "launches": v[1]}
+                          for k, v in top[:10]]}
+
+
+def quiet_call(fn, *args) -> tuple:
+    """(fn(*args), its stdout, its stderr), both captured."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        got = fn(*args)
+    return got, out.getvalue(), err.getvalue()
+
+
+def verify_phase(subset: int) -> dict:
+    """The on-card gate (rejit_tpu_torch/tools/verify_cuda.py) in this
+    process: every `subset`-th conformance case (1: all 140) under each
+    setting, and the DFA routes' L/I bit-equality at 1 MiB."""
+    from rejit_tpu_torch.tools import verify_cuda
+
+    t0 = time.perf_counter()
+    rc, out, err = quiet_call(verify_cuda.main,
+                              ["--subset", str(subset), "--size", "1"])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        print(err[-20000:], file=sys.stderr)
+    check(rc == 0, f"verify_cuda exited {rc}: {out.strip()[-2000:]}")
+    summary = json.loads(out.strip().splitlines()[-1])
+    emit({"phase": "verify_cuda", "subset": subset, "wall_s": wall,
+          "summary": summary})
+    return summary
+
+
+def jrep_tree(root: str, text: bytes) -> list:
+    """The jrep phase's tree under `root`: JREP_FILES files of
+    JREP_FILE_BYTES of `text` (config 3's words, a newline every
+    JREP_LINE_WORDS words), and small files of ^ / $ lines. Returns the
+    files in the order jrep -r walks them."""
+    arr = np.frombuffer(text[:JREP_FILES * JREP_FILE_BYTES],
+                        np.uint8).copy()
+    spaces = np.flatnonzero(arr == ord(" "))
+    arr[spaces[JREP_LINE_WORDS - 1::JREP_LINE_WORDS]] = ord("\n")
+    big = os.path.join(root, "big")
+    small = os.path.join(root, "small")
+    os.makedirs(big)
+    os.makedirs(small)
+    for i in range(JREP_FILES):
+        part = arr[i * JREP_FILE_BYTES:(i + 1) * JREP_FILE_BYTES]
+        with open(os.path.join(big, f"f{i:02d}.txt"), "wb") as f:
+            f.write(part.tobytes())
+    for name, body in (("a.txt", b"singing\nnot singing here\nringing\n"),
+                       ("b.txt", b"\nking\n\nwing\nthing"),
+                       ("c.txt", b"nothing to see\n"),
+                       ("empty.txt", b"")):
+        with open(os.path.join(small, name), "wb") as f:
+            f.write(body)
+    files = []
+    for d, _, names in os.walk(root):
+        files += [os.path.join(d, x) for x in sorted(names)]
+    return files
+
+
+def grep_expected(files, pattern: bytes, flags: int, mode: str) -> str:
+    """What jrep prints for several files (names prefixed) by Python `re`:
+    mode 'lines' (-n), 'count_lines' (-c) or 'count_matches'."""
+    out = []
+    for path in files:
+        with open(path, "rb") as f:
+            data = f.read()
+        starts = np.array([m.start() for m in re.finditer(pattern, data,
+                                                            flags)],
+                          dtype=np.int64)
+        if mode == "count_matches":
+            out.append(f"{path}:{len(starts)}")
+            continue
+        nl = np.flatnonzero(np.frombuffer(data, np.uint8) == 0x0A)
+        lines = np.unique(np.searchsorted(nl, starts, side="left"))
+        if mode == "count_lines":
+            out.append(f"{path}:{len(lines)}")
+            continue
+        for ln in lines.tolist():
+            lo = int(nl[ln - 1]) + 1 if ln > 0 else 0
+            hi = int(nl[ln]) if ln < len(nl) else len(data)
+            out.append(f"{path}:{ln + 1}:"
+                       + data[lo:hi].decode("utf-8", "replace"))
+    return "".join(x + "\n" for x in out)
+
+
+def jrep_phase(root: str, main_text: bytes, reset, launches) -> dict:
+    """The port's jrep (rejit_tpu_torch/tools/jrep.py) on the card, in this
+    process, over a generated tree (jrep_tree): batched (one call for
+    many files: classlit, on scan1d, and a literal), per file (the DFA
+    engine's tables may step on a newline; `ing\\s+\\w+` consumes one),
+    -c, --count-matches, --stream and ^ / $ lines; each run's output
+    equal to the lines Python `re` selects, its launches and its wall. Then `def \\w+ing` over
+    the port's sources on the card and on the CPU, equal."""
+    import shutil
+    import tempfile
+
+    from rejit_tpu_torch.tools import jrep
+
+    tmp = tempfile.mkdtemp(prefix="jrep_tree_")
+    try:
+        big_text = main_text * (-(-JREP_FILES * JREP_FILE_BYTES
+                                  // len(main_text)))
+        files = jrep_tree(tmp, big_text)
+        del big_text
+        word = rb"\b\w+ing\b"   # the DFA may step on '\n': per file
+        runs = {
+            # classlit (scan1d) and literal patterns cannot consume '\n':
+            # many files a call
+            "batched": (["-r", "-n"], B3_PATTERNS["classlit"][0], 0,
+                        "lines"),
+            "batched_count_lines": (["-r", "-c"], CONFIG1_PATTERN, 0,
+                                    "count_lines"),
+            "per_file": (["-r", "-n"], word, 0, "lines"),
+            "per_file_newlines": (["-r", "-n"], rb"ing\s+\w+", 0,
+                                  "lines"),
+            "count_lines": (["-r", "-c"], word, 0, "count_lines"),
+            "count_matches": (["-r", "--count-matches"], word, 0,
+                              "count_matches"),
+            "stream": (["-r", "-n", "--stream", "0.25"], word, 0, "lines"),
+            "anchors": (["-r", "-n"], rb"^\w+ing$", re.M, "lines"),
+        }
+        res = {"files": len(files), "bytes": sum(os.path.getsize(f)
+                                                 for f in files)}
+        for name, (flags, pat, reflags, mode) in runs.items():
+            argv = flags + [pat.decode(), tmp]
+            reset()
+            t0 = time.perf_counter()
+            rc, out, err = quiet_call(jrep.main, argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = launches()
+            want = grep_expected(files, pat, reflags, mode)
+            check(out == want, f"jrep {name}: output differs from re "
+                  f"({len(out)} vs {len(want)} chars) {err[-500:]}")
+            check(rc == (0 if any(not x.endswith(":0")
+                                  for x in want.splitlines()) else 1),
+                  f"jrep {name}: exit code {rc}")
+            if name == "batched":
+                check(0 < got["scan1d"] < len(files),
+                      f"jrep batched: {got['scan1d']} scan1d launches for "
+                      f"{len(files)} files")
+            res[name] = {"argv": flags + [pat.decode()], "wall_s": wall,
+                         "output_lines": want.count("\n"),
+                         "launches": got, "equal_to_re": True}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    pkg = os.path.dirname(os.path.abspath(jrep.__file__))
+    pkg = os.path.dirname(pkg)
+    srcs = sorted(os.path.join(d, x) for d, _, names in os.walk(pkg)
+                  for x in names if x.endswith(".py"))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        rc, out, _ = quiet_call(jrep.main, ["-n", r"def \w+ing", *srcs,
+                                            "--device", dev])
+        outs[dev] = (rc, out, time.perf_counter() - t0)
+    check(outs["cuda"][:2] == outs["cpu"][:2] and outs["cuda"][0] == 0,
+          "jrep over the port's sources: card and CPU differ")
+    res["port_sources"] = {"files": len(srcs),
+                           "lines": outs["cuda"][1].count("\n"),
+                           "wall_s": outs["cuda"][2],
+                           "cpu_wall_s": outs["cpu"][2],
+                           "equal_to_cpu": True}
+    emit({"phase": "jrep", **res})
+    return res
+
+
+def profile_phase(root: str) -> dict:
+    """profile_match (rejit_tpu_torch/tools/profile_match.py) at 10 MiB on
+    the card, as a process of its own (the profiler slows later launches
+    in its process): the Chrome trace exists, parses, and names the
+    schain_fused kernels."""
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="profile_match_")
+    path = os.path.join(out_dir, "trace.json")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "rejit_tpu_torch.tools.profile_match",
+         MAIN_PATTERN.decode(), "--size", str(PROFILE_SIZE_MB), "--out",
+         path], cwd=root, env=dict(os.environ, PYTHONPATH=root),
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"profile_match exited {r.returncode}: "
+          f"{r.stderr[-3000:]}")
+    with open(path) as f:
+        trace = json.load(f)
+    os.remove(path)
+    os.rmdir(out_dir)
+    kern = [e for e in trace.get("traceEvents", [])
+            if e.get("cat") == "kernel"]
+    names = sorted({e["name"] for e in kern})
+    fused = [x for x in names
+             if re.search(r"\b(sweep|schain)_\w*kernel\b", x)]
+    check(fused, f"profile_match trace names no schain_fused kernel: "
+          f"{names[:20]}")
+    res = {"size_mib": PROFILE_SIZE_MB, "wall_s": wall,
+           "events": len(trace["traceEvents"]), "kernel_events": len(kern),
+           "fused_kernels": fused, "kernel_names": len(names),
+           "kernel_us": sum(e.get("dur", 0) for e in kern),
+           "stdout": r.stdout.strip().splitlines()[-1]}
+    emit({"phase": "profile_match", **res})
+    return res
+
+
+def samples_phase(dna_checked: dict) -> dict:
+    """The samples on the card, in this process: basic prints what its
+    CPU run prints; regexdna at DNA_BASES prints the counts and lengths
+    that replace_phase held against Python `re`."""
+    from rejit_tpu_torch.samples import basic, regexdna
+
+    res = {}
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        rc, out, _ = quiet_call(basic.main, ["--device", dev])
+        outs[dev] = out
+        check(rc == 0, f"basic on {dev} exited {rc}")
+        res[f"basic_{dev}_wall_s"] = time.perf_counter() - t0
+    check(outs["cuda"] == outs["cpu"], "basic: card and CPU print differ")
+    t0 = time.perf_counter()
+    rc, out, err = quiet_call(regexdna.main, [str(DNA_BASES)])
+    res["regexdna_wall_s"] = time.perf_counter() - t0
+    check(rc == 0, f"regexdna exited {rc}")
+    lines = out.splitlines()
+    want = ([f"{v} {c}" for v, c in dna_checked["counts"].items()] + [""]
+            + [str(x) for x in dna_checked["lengths"]])
+    check(lines == want, f"regexdna prints {lines}, want {want}")
+    res.update(basic_lines=len(outs["cuda"].splitlines()),
+               basic_equal_to_cpu=True, regexdna_bases=DNA_BASES,
+               regexdna_equal_to_re=True,
+               regexdna_own_timing=err.strip())
+    emit({"phase": "samples", **res})
+    return res
 
 
 def main() -> int:
@@ -2831,8 +3306,8 @@ def main() -> int:
 
     # 11. regex-dna at its published size through the Replace path, and
     # device-side selection against the host walk.
-    dna_launches, dna_errs = replace_phase(rt, main_text, reset, launches,
-                                           only, quick)
+    dna_launches, dna_errs, dna_checked = replace_phase(
+        rt, main_text, reset, launches, only, quick)
     for k, v in dna_errs.items():
         errs[k] = max(errs[k], v)
     check(all(v == 0 for v in dna_errs.values()),
@@ -2849,11 +3324,32 @@ def main() -> int:
           f"kernels differ from their plain versions at the mesh path's "
           f"shapes: {mesh_errs}")
 
-    # 13. Times at 10 MB and 256 MiB.
+    # 13. The DFA routes' launch counts under each route setting.
+    route_phase(rt, main_text, reset, launches, only)
+
+    # 14. The matmul engine: bit-equal to the split route, no kernel.
+    matmul_phase(rt, main_text, reset, launches, only)
+
+    # 15. The on-card gate: the conformance corpus, every case.
+    verify_phase(subset=1)
+
+    # 16. The tools and samples on the card.
+    jrep_phase(root, main_text, reset, launches)
+    profile_phase(root)
+    samples_phase(dna_checked)
+
+    # 17. Times at 10 MB and 256 MiB.
     times = {}
     if not quick:
         t10, _ = time_size(rt, main_text, "10MB", reps=20, wall_reps=10)
         emit({"phase": "times", **t10})
+        emit({"phase": "times_matmul", "set": "config 3",
+              **matmul_times(rt, MAIN_PATTERN, main_text, "10MB",
+                             reps=10)})
+        words40 = matmul_words()
+        emit({"phase": "times_matmul", "set": "40-word alternation",
+              **matmul_times(rt, b"|".join(words40), planted_words_text(
+                  words40, MATMUL_WORDS_SIZE, 4096), "1MiB", reps=5)})
         tl10 = time_literal_engines(rt, main_text, "10MB", reps=20,
                                     walls=True)
         emit({"phase": "times_literal_engines", **tl10})
@@ -2872,6 +3368,8 @@ def main() -> int:
               "256 MiB spans differ from re")
         emit({"phase": "times", **t256, "equal_to_re": True})
         del big_out
+        emit({"phase": "times_matmul", "set": "config 3",
+              **matmul_times(rt, MAIN_PATTERN, big, "256MiB", reps=3)})
         tl256 = time_literal_engines(rt, big, "256MiB", reps=5, walls=False)
         emit({"phase": "times_literal_engines", **tl256})
         emit({"phase": "scan_paths_device_s",
@@ -2897,6 +3395,10 @@ def main() -> int:
                   "chunk_bytes": POSNFA_CHUNK,
                   **posnfa_launches(pt, block, POSNFA_CHUNK)})
     # scan1d by the profiler, after every timing: one kernel a call.
+    if not quick:
+        emit({"phase": "matmul_profile", **matmul_profile(
+            rt, make_corpus(10_000_000, seed=2, needle=b"matching",
+                            density=0.01), 5)})
     sprof = scan_profile(scn, 20)
     emit({"phase": "scan_profile", **sprof})
     check(all(r.get("kernels_a_call") == 1 for r in sprof.values()),

@@ -27,28 +27,32 @@ package does, see `choose_engine`):
   `Config.posnfa_chunk_bytes` run its exact chunked sweep;
 - oracle (`Config.engine='oracle'`, or the last step of the blowup
   fallback): the pure-Python NFA simulation of oracle.py, on the host;
-- dfa, by one of two routes (`Config.schain_fused`):
-  - the fused route, kernels/schain_cuda.py: one schain_fused kernel call
-    matches the whole text from its bytes, and an overlap-free
-    MatchAllCount is a pure device count. 'auto' takes it on the card when
-    the tables fit the kernel (Q <= 256, C*Q <= 4096, fewer than 255
-    patterns); 'on' forces it on either device (the plain version on the
-    CPU) and raises CompileError for tables that do not fit;
+- dfa, by one of three routes, tried in this order:
+  - the fused route (`Config.schain_fused`), kernels/schain_cuda.py: one
+    schain_fused kernel call matches the whole text from its bytes, and an
+    overlap-free MatchAllCount is a pure device count. 'auto' takes it on
+    the card when the tables fit the kernel (Q <= 256, C*Q <= 4096, fewer
+    than 255 patterns) and no other route is asked for: it stands aside,
+    as in the JAX package, under `matmul='on'`, `schain='on'` or `pallas`
+    other than 'auto' (those settings move the single-device calls and
+    the stream calls, not `mesh=`). 'on' forces it on either device (the
+    plain version on the CPU) and raises CompileError for tables that do
+    not fit;
+  - the matmul engine (`Config(matmul='on')`, unless `schain='on'`),
+    engine/matmul.py: the JAX package's one-hot formulation of the DFA
+    sweep as bf16 products (the card's tensor cores), no kernel of the
+    port's. It takes Q and `block_size` up to 256 and C*Q*Q up to 2^20,
+    and raises the JAX package's CompileError past that. The stream
+    calls, the first-window ladder and `mesh=` never reach it;
   - the split route, engine/pipeline.py: the L-array pipeline with its
-    phases 1 and 3 as CUDA kernels on the card. 'auto' takes it for
-    tables the fused kernel does not take and on the CPU; 'off' forces it.
+    phases 1 and 3 as CUDA kernels on the card, for everything else (and
+    for `schain='on'`, the JAX package's select-chain engine, which works
+    around slow TPU gathers). 'off' forces it.
 
 `Config.pallas` picks the kernel routes of the literal and elementwise
 engines (B3, B4): 'auto' takes them on the card, 'on' on either device
-(the kernels' plain versions on the CPU), 'off' takes the torch-op routes.
-
-`Config(matmul='on')` asks for the JAX package's one-hot matmul DFA
-engine, which the port does not have yet: the DFA engine keeps its routes
-(the same spans) where the tables would fit that engine, and raises its
-CompileError where they would not (Q or `block_size` above 256, or C*Q*Q
-above 2^20), on the calls where the JAX package raises: the DFA engine's
-single-device matching, unless `schain_fused='on'` or `schain='on'` take
-the tables first. The stream calls and `mesh=` never reach that engine.
+(the kernels' plain versions on the CPU), 'off' takes the torch-op routes;
+the split route keeps its kernels under every setting.
 
 A DFA blowup under automatic engine choice never hard-fails a supported
 pattern (`Pattern._blowup_fallback`): subset construction again at 4x the
@@ -95,7 +99,7 @@ from .config import DEFAULT, Config
 from .dist import literal as dlit
 from .dist import sharded as dsh
 from .dist.mesh import Mesh, local_cuda_devices, make_mesh
-from .engine import nfaset, pipeline, select, select_device, spans
+from .engine import matmul, nfaset, pipeline, select, select_device, spans
 from .errors import CompileError, StateBlowupError
 from .kernels import classlit, classrun, extract_cuda, literal, schain_cuda
 from .native import lib as native_lib
@@ -113,9 +117,6 @@ LIT_GRAIN = 1024    # padding grain of the literal engine's texts
 # Bounded class runs with Q ~ hi + 2 at or above this go to the
 # elementwise engines on the card (the JAX package's measured crossover).
 ELEM_MIN_Q = 48
-# The JAX package's matmul engine takes Q and block_size up to this
-# (engine/matmul.py MAX_BLOCK: step indices stay exact in bf16).
-MATMUL_MAX_BLOCK = 256
 
 
 def text_to_u8(text: TextLike) -> np.ndarray:
@@ -464,8 +465,23 @@ class Pattern:
         return None
 
     def _use_schain_fused(self, device_type: Optional[str] = None) -> bool:
-        """The fused route (kernels/schain_cuda.py) or the split pipeline,
-        for tables on the pattern's device (or on `device_type`)."""
+        """The fused route (kernels/schain_cuda.py) or another, for tables
+        on the pattern's device (or on `device_type`): `_fused_fits`, but
+        under 'auto' the fused route stands aside where another engine is
+        asked for (matmul='on', schain='on', pallas other than 'auto'), as
+        the JAX package's does."""
+        cfg = self.config
+        if cfg.schain_fused == "auto" and (
+                cfg.matmul == "on" or cfg.schain == "on"
+                or cfg.pallas != "auto"):
+            return False
+        return self._fused_fits(device_type)
+
+    def _fused_fits(self, device_type: Optional[str] = None) -> bool:
+        """Config.schain_fused and the kernel's limits alone: 'off' never,
+        'on' always (raises for tables that do not fit), 'auto' on the card
+        when the tables fit. The sharded route reads this: it takes no
+        notice of the other engines' settings, as in the JAX package."""
         mode = self.config.schain_fused
         if mode == "off":
             return False
@@ -480,18 +496,18 @@ class Pattern:
             return True
         return fits and (device_type or self.device.type) == "cuda"
 
-    def _refuse_matmul(self) -> None:
-        """Raise where the JAX package's `_use_matmul` raises: under
-        Config(matmul='on'), for tables the matmul engine cannot hold,
-        unless the fused or select-chain engine is forced and takes them
-        first. Called on the DFA engine's single-device device calls."""
+    def _use_matmul(self) -> bool:
+        """The matmul engine (engine/matmul.py), explicit opt-in only
+        (the JAX package measured it slower than its select chain at small
+        Q): True under Config(matmul='on') for tables it holds; raises the
+        JAX package's CompileError for tables it cannot."""
         cfg = self.config
-        if cfg.matmul != "on" or "on" in (cfg.schain_fused, cfg.schain):
-            return
+        if cfg.matmul != "on":
+            return False
         Q, C = self.tables.n_states, self.tables.n_classes
-        if (Q <= MATMUL_MAX_BLOCK and cfg.block_size <= MATMUL_MAX_BLOCK
+        if (Q <= matmul.MAX_BLOCK and cfg.block_size <= matmul.MAX_BLOCK
                 and C * Q * Q <= 1 << 20):
-            return
+            return True
         raise CompileError(
             f"pattern too large for the matmul engine (Q={Q}, C={C}, "
             f"block={cfg.block_size}); use Config(matmul='off') to fall back "
@@ -593,13 +609,17 @@ class Pattern:
                 ext, n, lits=self.info.literals,
                 pids=self.info.literal_pids, P=P,
             )
-        self._refuse_matmul()
         if self.fused:
             return schain_cuda.l_arrays_device_staged(
                 self.ct, self._padded_text(text, corpus, self.fused_block), n,
                 block=self.fused_block, use_ff=self.config.use_ff,
             )
         K = self.config.block_size
+        # schain='on' (the JAX package's select chain) takes the split
+        # route before the matmul engine, as its engine does there.
+        if self.config.schain != "on" and self._use_matmul():
+            return matmul.l_arrays_device_matmul(
+                self.ct, self._padded_text(text, corpus, K), n, block=K)
         dev_text = self._padded_text(text, corpus, K)
         if self.config.use_ff:
             return pipeline.l_arrays_device_ff(
@@ -962,7 +982,6 @@ class Pattern:
         if self.info.overlap_free and self.fused:
             # Overlap-free: every candidate is a match, so the count is a
             # pure device reduction and no L/I array is written.
-            self._refuse_matmul()
             with Timer() as t_all:
                 cnt = int(schain_cuda.count_device_staged(
                     self.ct, self._padded_text(t, corpus, self.fused_block),
@@ -1068,8 +1087,9 @@ class Pattern:
         """The sharded DFA route's keywords (dist/sharded.py): the fused
         kernel per shard where the pattern's own route rule takes it for
         the mesh's devices (on the card when the tables fit it; anywhere
-        under schain_fused='on'), else the split kernels."""
-        if self._use_schain_fused(mesh.devices[0].type):
+        under schain_fused='on'; the other engines' settings are not read),
+        else the split kernels."""
+        if self._fused_fits(mesh.devices[0].type):
             return dict(engine="fused", block=self.fused_block,
                         use_ff=self.config.use_ff)
         return dict(engine="split", block=self.config.block_size)

@@ -10,21 +10,32 @@ user's `Config` means the same thing in both. The port reads `engine`
 (None, 'literal', 'classrun', 'classlit', 'dfa', 'posnfa' or 'oracle'),
 `ignore_case`, `block_size` (the split pipeline's K),
 `use_ff`, `force_ff`, `max_nfa_states`, `max_dfa_states`, `schain_fused`,
-`fused_block`, `pallas` and `bitmask`:
+`fused_block`, `pallas`, `matmul`, `schain` and `bitmask`:
 - `schain_fused` picks the DFA route: 'auto' takes the fused CUDA kernel
   (kernels/schain_cuda.py) on a CUDA device when the tables fit it
   (Q <= 256, C*Q <= 4096, fewer than 255 patterns) and the split pipeline
   otherwise or on the CPU; 'on' forces the fused route on either device
   (its plain version on the CPU) and raises CompileError for tables that
-  do not fit; 'off' forces the split pipeline. As in the JAX package it
-  also steers the engine choice of class-run patterns on the card ('on'
-  keeps them on the DFA, 'off' sends every class run to classrun);
+  do not fit; 'off' forces the split pipeline. As in the JAX package,
+  'auto' stands aside for the single-device and stream calls (not for
+  `mesh=`) under `matmul='on'`, `schain='on'` or `pallas` other than
+  'auto', and it also steers the engine choice of class-run patterns on
+  the card ('on' keeps them on the DFA, 'off' sends every class run to
+  classrun);
 - `fused_block` is the fused kernel's K (None: schain_cuda.DEFAULT_BLOCK);
 - `pallas` picks the kernel routes of the literal and elementwise engines:
   'auto' takes the literal_spans kernel (kernels/extract_cuda.py) and the
   scan1d kernel (kernels/scan_cuda.py) on a CUDA device; 'on' takes them
   on either device (their plain versions on the CPU); 'off' takes the
-  torch-op routes (the L/I claim, torch.cummin/cummax);
+  torch-op routes (the L/I claim, torch.cummin/cummax); the split
+  pipeline keeps its CUDA kernels under every setting;
+- `matmul` ('on'; 'off' and 'auto' leave it off) sends the DFA engine's
+  single-device matching to the one-hot matmul engine (engine/matmul.py)
+  when the fused route does not take the tables, and raises CompileError
+  for tables it cannot hold (Q or `block_size` above 256, C*Q*Q above
+  2^20);
+- `schain` ('on') takes the split pipeline where the JAX package takes
+  its select-chain engine, ahead of the matmul engine;
 - `bitmask` ('auto' or 'off') lets overlap-free sets of at most 8
   literals take the start-mask route of the literal engine;
 - `first_window`: the first window of the early-exit ladder that
@@ -51,9 +62,8 @@ user's `Config` means the same thing in both. The port reads `engine`
 - `mesh_axis`: the axis of the meshes that `mesh=` takes (dist/mesh.py):
   `mesh='auto'` builds its mesh along it, and a Mesh along another axis
   raises CompileError.
-Every other field is accepted and has no effect in the port yet: the
-TPU-only knobs (`schain`, `schain_rolled`, `fused_chl`, `interpret`,
-`matmul`).
+Every other field is accepted and has no effect in the port: the TPU-only
+knobs (`schain_rolled`, `fused_chl`, `interpret`).
 """
 from __future__ import annotations
 

@@ -54,6 +54,12 @@ def test_import_loads_no_jax_and_no_rejit_tpu():
         "import rejit_tpu_torch.dist.multiproc_worker\n"
         "import rejit_tpu_torch.runtime.init\n"
         "import rejit_tpu_torch.tools.launch_multihost\n"
+        "import rejit_tpu_torch.engine.matmul\n"
+        "import rejit_tpu_torch.tools.jrep\n"
+        "import rejit_tpu_torch.tools.profile_match\n"
+        "import rejit_tpu_torch.tools.verify_cuda\n"
+        "import rejit_tpu_torch.samples.basic\n"
+        "import rejit_tpu_torch.samples.regexdna\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib') "
         "or m == 'rejit_tpu' or m.startswith('rejit_tpu.') "

@@ -4,10 +4,10 @@ The JAX package's `_use_matmul` raises CompileError for tables its one-hot
 matmul engine cannot hold (Q or block_size above 256, C*Q*Q above 2^20),
 on the entry points that reach that engine: the DFA engine's
 single-device matching, unless schain_fused='on' or schain='on' take the
-tables first. The port has no matmul engine; it must raise the same error
-on the same calls and give the same results on every other call. Where the
-tables fit, the JAX package runs its matmul engine and the port its DFA
-routes: the spans must be equal.
+tables first. The port must raise the same error on the same calls and
+give the same results on every other call. Where the tables fit, both
+packages run their matmul engines: the spans must be equal, and the
+port's engine (engine/matmul.py) must be the one that ran.
 
 Each case compares the outcome of one call on both packages: its result
 (arrays as lists) or the CompileError's message. The JAX side runs on the
@@ -26,6 +26,7 @@ import rejit_tpu
 import rejit_tpu_torch as rt
 from rejit_tpu.dist.mesh import make_mesh as jax_make_mesh
 from rejit_tpu_torch.dist.mesh import make_mesh
+from rejit_tpu_torch.engine import matmul
 
 # Small inputs: one intra-op thread keeps the xdist workers from
 # oversubscribing the CPU.
@@ -80,6 +81,20 @@ def _call(p, op: str, text: bytes):
     return getattr(p, op)(text)
 
 
+@pytest.fixture
+def engine_calls(monkeypatch):
+    """The text lengths the port's matmul engine was called on."""
+    calls = []
+    real = matmul.l_arrays_device_matmul
+
+    def wrapped(*a, **kw):
+        calls.append(a[2])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(matmul, "l_arrays_device_matmul", wrapped)
+    return calls
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_outcome(pat: bytes, op: str):
     return _outcome(lambda: _call(_pattern("jax", pat), op, TEXTS[pat]))
@@ -89,7 +104,7 @@ def _jax_outcome(pat: bytes, op: str):
                          [(TOO_LARGE, op) for op in ENTRY_POINTS]
                          + [(pat, op) for pat in FITTING
                             for op in ENTRY_POINTS + STREAM_CALLS])
-def test_matmul_on_equals_jax(pat, op):
+def test_matmul_on_equals_jax(pat, op, engine_calls):
     p = _pattern("torch", pat)
     assert p.engine == "dfa" == _pattern("jax", pat).engine
     want = _jax_outcome(pat, op)
@@ -101,6 +116,12 @@ def test_matmul_on_equals_jax(pat, op):
     if refused:
         assert "too large for the matmul engine (Q=513, C=3, block=32)" \
             in want[1]
+    # Where the tables fit, the single-device calls run the matmul engine
+    # on the whole text and the stream calls never reach it.
+    if refused or op in STREAM_CALLS:
+        assert engine_calls == []
+    else:
+        assert engine_calls and set(engine_calls) == {len(TEXTS[pat])}
 
 
 # (label, Config fields besides matmul='on', call, outcome), each on
@@ -126,7 +147,8 @@ ROUTE_CASES = [
 
 
 @pytest.mark.parametrize("label,cfg,op,expect", ROUTE_CASES)
-def test_matmul_on_refusal_follows_the_jax_routes(label, cfg, op, expect):
+def test_matmul_on_refusal_follows_the_jax_routes(label, cfg, op, expect,
+                                                  engine_calls):
     pat = rb"\w+\s"
     text = TEXTS[pat] * 40  # 4 KB: past BIG_CHUNK, several chunks
     got = []
@@ -145,5 +167,7 @@ def test_matmul_on_refusal_follows_the_jax_routes(label, cfg, op, expect):
             got.append(_outcome(lambda: _call(p, op, text)))
     assert got[1] == got[0], label
     assert got[0][0] == expect, (label, got[0])
+    # No route of a block past 256 runs the matmul engine.
+    assert engine_calls == []
     if expect == "raise":
         assert f"block={BIG_BLOCK})" in got[0][1]
