@@ -5,13 +5,18 @@ Run from the repository root, on a machine with an NVIDIA card and nvcc:
 
     python3 chip_smoke.py            # everything (what the chip check runs)
     python3 chip_smoke.py --quick    # build, checks and main paths; no timing
-    python3 chip_smoke.py --times b1|scan [--port-root DIR]
+    python3 chip_smoke.py --times b1|scan|tile [--port-root DIR]
         # one kernel's rows only, for the port in DIR (default: this
         # checkout), for a before column: b1, the split route's
         # dfa_phase1/dfa_phase3 (DIR may hold an older checkout whose
         # kernels took int32 views); scan, scan1d at 10 M and 256 Mi
         # (events, then the profiler) and the classrun and classlit
-        # paths' device_time_s at 10 MB and 256 MiB
+        # paths' device_time_s at 10 MB and 256 MiB; tile, schain_fused's
+        # tile instance (the `_schain_fused_tile` hook) in L (L+I) and
+        # count modes on the four log-search workloads, the line-long
+        # case, config 3's tables and the two no-die cases (Q = 3 and 42)
+        # at 10 MB and 256 MiB, on the log text of this script's own
+        # checkout
 
 It builds the port's CUDA kernels from the sources in the checkout (one nvcc
 per source, all started together), then:
@@ -35,9 +40,11 @@ per source, all started together), then:
    and 64 beside the default 32, and on the 10 MB dense and sparse texts
    (W = 8 and 32, several tiles a chunk) at n = P, P-3 and, per mode from
    the card's own geometry, a tile edge inside a chunk, a chunk edge and
-   a segment edge of the sweep instance; the sparse texts must take the
-   skip; literal_spans at caps 0, 2, 4 and 16 for sets of 1, 3, 9 and 15
-   literals of 1 to 128 bytes and a set of 1-, 3-, 4-, 5- and 8-byte
+   a segment edge of the sweep instance, and a tile edge inside a
+   segment, a grid-range edge inside a tile and a segment edge of the tile
+   instance; the sparse texts must take the skip; literal_spans at caps 0,
+   2, 4 and 16 for sets of 1, 3, 9 and 15 literals of 1 to 128 bytes and
+   a set of 1-, 3-, 4-, 5- and 8-byte
    literals, at n = P, P-3, a row edge, a block edge, 1 and 0, and for the
    12 keywords on the main text; scan1d in both directions on random
    (the whole int32 range), monotone and constant int32, on small values
@@ -58,6 +65,19 @@ per source, all started together), then:
    match_all_count of an overlap-free pattern on the DFA engine) and a
    staged corpus (`stage`) on every entry point are checked on the same
    text;
+   then the log-search workloads (`log_phase`, the tile instance's,
+   Q = 37..40): over `make_log_corpus(size, seed=1)` at 10 MB and
+   256 MiB, a level alternation, an access-log request line, a UUID and
+   the mariomka/regex-benchmark Email / URI / IP list (L+I mode) each take
+   the fused route's tile instance with one schain_fused call a
+   match_all_arrays call; at 10 MB their spans (and pattern ids) equal
+   Python `re` and the port's CPU run, and the kernel equals its plain
+   version at the tile instance's tile, range and segment edges, as it
+   is on the two worst cases that --times tile times (a line-long
+   pattern over the log text, and threads that never die at Q = 42 over
+   letters and spaces); outside --quick the kernel's device ms (events; L or L+I, and count mode) and
+   the match_all_arrays walls, host bytes and staged, with the card's
+   name and power limit, at both sizes;
 4. drives the split kernels on their paths, each with its own counts: a
    250-word alternation (tables too large for the fused kernel),
    `Config(schain_fused='off')` on the main text and on a sparse text (the
@@ -317,6 +337,37 @@ JREP_FILES = 64            # files of JREP_FILE_BYTES of config-3 text
 JREP_FILE_BYTES = 1 << 20
 JREP_LINE_WORDS = 12       # words a line of the jrep tree's files
 PROFILE_SIZE_MB = 10
+# Log search (the tile instance's workloads, Q = 37..40): four patterns over
+# `make_log_corpus(size, seed=LOG_SEED)` at 10 MB and 256 MiB. "d" is the
+# public mariomka/regex-benchmark's Email, URI and IP patterns as one list
+# (its `(?:` groups written as `(`: the parser takes no `(?:`), run in L+I
+# mode; `LOG_RE` holds the `re` forms the spans are held against.
+LOG_SEED = 1
+LOG_SIZES = (10_000_000, 256 << 20)
+LOG_PATTERNS = {
+    "a": rb"\b(ERROR|WARN|WARNING|FATAL|CRITICAL|SEVERE|PANIC|ALERT|EMERG)\b",
+    "b": rb'"(GET|POST|PUT|DELETE|HEAD|OPTIONS|PATCH) [^ ]* HTTP/1\.[01]" '
+         rb"[0-9]{3}",
+    "c": rb"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}",
+    "d": [rb"[\w\.+-]+@[\w\.-]+\.[\w\.-]+",
+          rb"[\w]+://[^/\s?#]+[^\s?#]+(\?[^\s#]*)?(#[^\s]*)?",
+          rb"((25[0-5]|2[0-4][0-9]|[01]?[0-9][0-9])\.){3}"
+          rb"(25[0-5]|2[0-4][0-9]|[01]?[0-9][0-9])"],
+}
+LOG_RE = {k: (b"|".join(b"(?P<p%d>%s)" % (i, x.replace(b"(", b"(?:"))
+                        for i, x in enumerate(v))
+              if isinstance(v, list) else v)
+          for k, v in LOG_PATTERNS.items()}
+# The tile instance's worst case: threads that never die (every byte of
+# words_text is in [a-z ]), through the tile hook (Q = 3), and on a table
+# the wrapper gives the tile instance (Q = 42: all 40 states of the cycle
+# live through every piece).
+NODIE_PATTERN = rb"[a-z ]*q"
+NODIE_WIDE_PATTERN = rb"([a-z ]{40})*q"
+# Threads that live to the end of a log line (Q = 38): each line holding
+# an alert level, over the log text.
+LINES_PATTERN = (rb"[^\n]*\b(ERROR|WARN|WARNING|FATAL|CRITICAL|SEVERE|PANIC"
+                 rb"|ALERT|EMERG)\b")
 
 
 START = time.perf_counter()
@@ -620,7 +671,8 @@ def fused_vs_plain(ct, text: torch.Tensor, ns, modes=("l", "li", "count"),
                    first_starts=(None,)) -> dict:
     """Max |schain_fused - schain_fused_plain| (L, I, count and G; with
     emit_f, F on boundaries 0..n, and F past n apart as `f_past_n_err`)
-    over the n values (with `edges`, also each mode's `sweep_edges`),
+    over the n values (with `edges`, also each mode's `sweep_edges`,
+    where the sweep takes Q, and `tile_edges`),
     seeds, boundary-0 start states, modes, the FF skip on/off and the
     kernel instances that take these tables, on the same CUDA text; and
     the tiles each instance skipped with the skip on."""
@@ -630,8 +682,10 @@ def fused_vs_plain(ct, text: torch.Tensor, ns, modes=("l", "li", "count"),
     insts = instances(ct.n_states)
     skipped = dict.fromkeys(insts, 0)
     tiles = dict.fromkeys(insts, 0)
-    ns_of = {m: tuple(ns) + (sweep_edges(ct, text, m, emit_f) if edges
-                             else ()) for m in modes}
+    ns_of = {m: tuple(ns) + ((sweep_edges(ct, text, m, emit_f)
+                              if "sweep" in insts else ())
+                             + tile_edges(ct, text, m) if edges else ())
+             for m in modes}
     for mode in modes:
         for n in ns_of[mode]:
             for name in seeds:
@@ -668,6 +722,261 @@ def fused_vs_plain(ct, text: torch.Tensor, ns, modes=("l", "li", "count"),
     if emit_f:
         out["f_past_n_err"] = past
     return out
+
+
+def tile_edges(ct, text: torch.Tensor, mode: str) -> tuple:
+    """(tile edge inside a segment, grid-range edge inside a tile, segment
+    edge) of the tile instance on this text in `mode`, from the geometry
+    the wrapper takes on the text's card: the segment edge in the middle of
+    the text, one tile past it, and one tile and one grid range (or half a
+    tile, when a range is a whole tile) past that."""
+    from rejit_tpu_torch.kernels import schain_cuda as sc
+
+    P = text.shape[0]
+    Q, C = ct.n_states, ct.n_classes
+    with torch.cuda.device(text.device):
+        blocks = sc._tile_blocks(text.device.index, mode, Q, C,
+                                 sc.grid_nb(Q))
+    NB, _, tps, nseg = sc.geometry(Q, P, blocks)
+    check(tps > 1, f"{P} bytes: one tile a segment, no tile edge inside one")
+    seg = nseg // 2 * tps * sc.TILE
+    inner = min(NB * sc.PIECE, sc.TILE // 2)
+    return (min(P, seg + sc.TILE), min(P, seg + sc.TILE + inner),
+            min(P, seg))
+
+
+def log_text(size: int, corpus=None) -> bytes:
+    """The log-search workloads' text (LOG_SEED), from `corpus` (a module
+    with make_log_corpus; default this checkout's port)."""
+    if corpus is None:
+        from rejit_tpu_torch.utils import corpus
+    return corpus.make_log_corpus(size, seed=LOG_SEED)
+
+
+def own_corpus():
+    """This script's checkout's rejit_tpu_torch/utils/corpus.py, loaded on
+    its own (numpy only): --times tile --port-root DIR times an older port
+    on the same log text, whatever that port's corpus module holds."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "rejit_tpu_torch", "utils", "corpus.py")
+    spec = importlib.util.spec_from_file_location("_smoke_corpus", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def re_tokens(pattern: bytes, text: bytes) -> list:
+    """(start, end, pattern id) of re.finditer, the id from the named group
+    p<i> that matched (0 for a pattern without groups named so)."""
+    out = []
+    for m in re.finditer(pattern, text):
+        g = m.lastgroup
+        out.append((m.start(), m.end(), int(g[1:]) if g else 0))
+    return out
+
+
+def tile_workloads(rt, corpus=None, sizes=LOG_SIZES) -> list:
+    """[(label, size, pattern, mode, text)] of the tile instance's timed
+    rows: the four log patterns (L and count modes; "d" in L+I) and the
+    line-long case (`LINES_PATTERN`) over the log text, config 3's tables,
+    and the no-die cases (`NODIE_PATTERN`, `NODIE_WIDE_PATTERN`) over
+    words_text, at each size. Texts are made once a size (a generator: one
+    size in memory)."""
+    from rejit_tpu_torch.utils.corpus import make_corpus
+
+    for size in sizes:
+        text = log_text(size, corpus)
+        for name, pat in LOG_PATTERNS.items():
+            mode = "li" if isinstance(pat, list) else "l"
+            yield name, size, pat, mode, text
+        yield "lines", size, LINES_PATTERN, "l", text
+        del text
+        text = make_corpus(size, seed=2, needle=b"matching", density=0.01)
+        yield "config3", size, MAIN_PATTERN, "l", text
+        text = words_text(size)
+        yield "nodie", size, NODIE_PATTERN, "l", text
+        yield "nodie_wide", size, NODIE_WIDE_PATTERN, "l", text
+        del text
+
+
+def time_tile_row(rt, name: str, size: int, pat, mode: str, text: bytes,
+                  reps: int) -> dict:
+    """The tile instance (the `_schain_fused_tile` hook) on one workload:
+    device ms by CUDA events in `mode` and the count mode, with the card."""
+    from rejit_tpu_torch.kernels import schain_cuda as sc
+
+    ct = dfa_tables(rt, pat)
+    t = padded(text, DEV)
+    n = len(text)
+    seed = sc.solo_seed(ct, n)
+    row = {"workload": name, "n": n, "Q": ct.n_states, "C": ct.n_classes,
+           "patterns": ct.n_patterns, "mode": mode}
+    for key, m in (("ms", mode), ("count_ms", "count")):
+        row[key] = time_ms(lambda: sc._schain_fused_tile(
+            ct, t, n, seed, block=K, mode=m), reps)
+    return row
+
+
+def tile_times(rt, reps: int) -> None:
+    """--times tile: the tile instance's rows only, for the imported port
+    (DIR may hold an older checkout): each tile_workloads row, one line
+    each, on the log text of this script's own checkout."""
+    corpus = own_corpus()
+    card = nvidia_smi("name,power.limit")
+    for name, size, pat, mode, text in tile_workloads(rt, corpus):
+        r = reps if size < (1 << 26) else max(2, reps // 4)
+        emit({"phase": "times_tile", "card": card, **time_tile_row(
+            rt, name, size, pat, mode, text, r)})
+
+
+def tile_work(ct, t: torch.Tensor, n: int) -> dict:
+    """The tile instance's walk-path work on this text, counted with torch
+    ops on t's device: each boundary below n whose start state is live
+    walks to the dead state or its tile's end (sc.TILE bytes, or n); the
+    steps a byte, the boundaries a byte with a first step, and the longest
+    walk. The grid path's is 2*Q + 16.5 steps a byte."""
+    from rejit_tpu_torch.kernels import schain_cuda as sc
+
+    dead = ct.plan.dead
+    C = ct.n_classes
+    P = t.shape[0]
+    dev = t.device
+    cls = ct.class_of.long()[t.long()]
+    S = torch.empty(P, dtype=torch.long, device=dev)
+    S[0] = ct.plan.start_by_ctx[0]
+    S[1:] = ct.start_of_byte.long()[t[:-1].long()]
+    pos = torch.arange(P, device=dev)
+    end = torch.clamp((pos // sc.TILE + 1) * sc.TILE, max=n)
+    live = pos < end
+    if dead is not None:
+        live &= S != dead
+    idx = live.nonzero().flatten()
+    cur, j = S[idx], idx.clone()
+    packed = ct.packed.long()
+    steps, first, longest = 0, idx.numel(), 0
+    while idx.numel():
+        v = packed[cur * C + cls[j]]
+        cur, j = v >> 8, j + 1
+        steps += idx.numel()
+        longest += 1
+        keep = j < end[idx]
+        if dead is not None:
+            keep &= cur != dead
+        idx, cur, j = idx[keep], cur[keep], j[keep]
+    return {"live_steps_per_byte": steps / max(1, n),
+            "first_steps_per_byte": first / max(1, n),
+            "longest_walk": longest}
+
+
+def log_bounds(n: int, Q: int, mode: str) -> dict:
+    """The two bounds of a tile-instance row: the bytes it must move (the
+    text read once, L written once, and I in L+I mode: 5 or 9 B a byte;
+    1 B in count mode) over HBM bandwidth, and Q automaton steps a byte
+    (the backward composition over the Q states), one shared-memory table
+    load each, at the card's shared-memory load rate."""
+    per = {"l": 5, "li": 9, "count": 1}[mode]
+    return {"bytes_bound_ms": per * n / HBM_BYTES_PER_S * 1e3,
+            "steps_bound_ms": Q * n / SMEM_LOADS_PER_S * 1e3}
+
+
+def log_phase(rt, reset, launches, only, quick: bool) -> dict:
+    """The log-search workloads on the tile instance (LOG_PATTERNS over
+    the log text at 10 MB and 256 MiB): each pattern takes the fused route
+    and the tile instance with one schain_fused call a match_all_arrays
+    call; at 10 MB its spans (and pattern ids) equal Python `re` and the
+    port's CPU run, and the kernel is held bit-equal to its plain version
+    at the tile instance's own tile, range and segment edges, as it is on
+    LINES_PATTERN and NODIE_WIDE_PATTERN. Outside --quick: the kernel's device ms in the pattern's mode and the count
+    mode (CUDA events) and match_all_arrays's walls, from host bytes and
+    staged, with the bounds; each row with the card's name and power
+    limit. Returns {"max_abs_err": .., "calls": .., "rows": [..]}."""
+    from rejit_tpu_torch.kernels import schain_cuda as sc
+
+    card = nvidia_smi("name,power.limit")
+    err = calls = 0
+    rows = []
+    sizes = LOG_SIZES[:1] if quick else LOG_SIZES
+    for size in sizes:
+        text = log_text(size)
+        for name, pat in LOG_PATTERNS.items():
+            p = rt.Pattern(pat, device=DEV)
+            ct = p.ct
+            mode = "li" if ct.n_patterns > 1 else "l"
+            check(p.engine == "dfa" and p.fused
+                  and sc.instance_for(ct.n_states) == "tile",
+                  f"log {name}: engine {p.engine}, fused {p.fused}, "
+                  f"Q {ct.n_states}")
+            with Recorder([(sc, "_fused")]) as rec:
+                reset()
+                out = p.match_all_arrays(text)
+                got_launches = launches()
+            check(only(got_launches, schain_fused=1),
+                  f"log {name}: {got_launches}")
+            check([c[1][4] for c in rec.calls] == ["tile"],
+                  f"log {name}: instances {[c[1][4] for c in rec.calls]}")
+            row = {"workload": name, "n": size, "Q": ct.n_states,
+                   "C": ct.n_classes, "patterns": ct.n_patterns,
+                   "mode": mode, "matches": len(out[0]),
+                   "launches": got_launches, "card": card}
+            if size == LOG_SIZES[0]:
+                toks = list(zip(out[0].tolist(), out[1].tolist(),
+                                out[2].tolist()))
+                want = re_tokens(LOG_RE[name], text)
+                check(toks == want, f"log {name}: spans differ from re "
+                      f"({len(toks)} vs {len(want)})")
+                cpu = rt.Pattern(pat, device="cpu").match_all_arrays(text)
+                check(all(np.array_equal(a, b) for a, b in zip(out, cpu)),
+                      f"log {name}: card and CPU runs differ")
+                t = padded(text, DEV)
+                e = fused_vs_plain(ct, t, (size, size - 3) + tile_edges(
+                    ct, t, mode), modes=(mode, "count"))
+                err = max(err, e["max_abs_err"])
+                calls += e["calls"]
+                row.update(equal_to_re=True, equal_to_cpu=True,
+                           kernel_vs_plain=e["max_abs_err"],
+                           edges=e["ns"], **tile_work(ct, t, size))
+                del t
+            if not quick:
+                reps = 20 if size < (1 << 26) else 5
+                row.update(time_tile_row(rt, name, size, pat, mode, text,
+                                         reps))
+                for m in (mode, "count"):
+                    row.update({f"{m}_{k}": v for k, v in log_bounds(
+                        size, ct.n_states, m).items()})
+                corpus = rt.stage(text, DEV)
+                wr = 5 if size < (1 << 26) else 3
+                row["match_all"] = wall_s(lambda: p.match_all_arrays(text),
+                                          wr)
+                row["match_all_staged"] = wall_s(
+                    lambda: p.match_all_arrays(corpus), wr)
+                del corpus
+            emit({"phase": "log_search", **row})
+            rows.append(row)
+        if size == LOG_SIZES[0]:
+            # The timed worst cases of `--times tile` that the wrapper gives
+            # the tile instance: kernel = plain at its edges.
+            for name, pat, txt in (("lines", LINES_PATTERN, text),
+                                   ("nodie_wide", NODIE_WIDE_PATTERN,
+                                    words_text(size))):
+                ct = dfa_tables(rt, pat)
+                check(sc.instance_for(ct.n_states) == "tile",
+                      f"{name}: Q {ct.n_states}")
+                t = padded(txt, DEV)
+                e = fused_vs_plain(ct, t, (size, size - 3) + tile_edges(
+                    ct, t, "l"), modes=("l", "count"))
+                err = max(err, e["max_abs_err"])
+                calls += e["calls"]
+                row = {"phase": "log_search_worst", "workload": name,
+                       "n": size, "Q": ct.n_states, "C": ct.n_classes,
+                       "kernel_vs_plain": e["max_abs_err"], "edges": e["ns"]}
+                if name == "lines":     # no-die walks run to every tile end
+                    row.update(tile_work(ct, t, size))
+                emit(row)
+                del t
+        del text
+    return {"max_abs_err": err, "calls": calls, "rows": rows}
 
 
 def spans_of(out) -> list:
@@ -832,17 +1141,19 @@ def time_size(rt, text: bytes, label: str, reps: int,
     # The fused route: the sweep instance (the main path's, Q <= 32) and
     # the tile instance (the design before it) in turns, per mode.
     seed = sc.solo_seed(ct, n)
-    NB, ntiles, tps, nseg = sc.geometry(Q, K, P)
+    NB, ntiles, tps, nseg = sc.geometry(Q, P, sc._tile_blocks(
+        dev_text.device.index, "l", Q, C, sc.grid_nb(Q)))
     W, sw_tiles, tpc, sw_nseg = sc.sweep_geometry(
         Q, P, sc._sweep_blocks(dev_text.device.index, "l"))
-    res.update({"tiles": ntiles, "tile_bytes": NB * K, "segments": nseg,
+    res.update({"tiles": ntiles, "tile_bytes": sc.TILE, "segments": nseg,
+                "grid_range_bytes": NB * sc.PIECE,
                 "sweep_width": W, "sweep_tiles": sw_tiles,
                 "sweep_chunk_bytes": tpc * sc.SWEEP_TILE,
                 "sweep_segments": sw_nseg})
 
-    def fused(mode, inst="sweep", block=K):
+    def fused(mode, inst="sweep"):
         run = fused_call(sc, ct, inst)
-        return lambda: run(ct, dev_text, n, seed, block=block, mode=mode)
+        return lambda: run(ct, dev_text, n, seed, block=K, mode=mode)
 
     for key, mode in (("", "l"), ("_count", "count"), ("_li", "li")):
         t = {"sweep": [], "tile": []}
@@ -861,12 +1172,6 @@ def time_size(rt, text: bytes, label: str, reps: int,
             lambda: sc.l_arrays_device_staged(ct, dev_text, n, block=K),
             reps),
     })
-    # The fused block K (Config.fused_block), the default 32 beside others:
-    # the sweep instance does not read it, the tile instance's sub-blocks
-    # are K bytes.
-    for inst in ("sweep", "tile"):
-        res[f"schain_fused_{inst}_ms_by_block"] = {
-            k: time_ms(fused("l", inst, k), reps) for k in (16, 32, 64)}
     dc.reset_launches()
     sc.reset_launches()
     sc.l_arrays_device_staged(ct, dev_text, n, block=K)
@@ -2905,7 +3210,7 @@ def main() -> int:
           "ptxas": {k: v["ptxas"] for k, v in built.items()},
           "port": rt.__file__})
     if "--times" in args:
-        {"b1": b1_times, "scan": scan_times}[
+        {"b1": b1_times, "scan": scan_times, "tile": tile_times}[
             args[args.index("--times") + 1]](rt, reps=20)
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
@@ -3003,12 +3308,11 @@ def main() -> int:
                     if kind == "dense" else sparse_small)
             t = padded(text, DEV)
             P = t.shape[0]
-            NB = sc.geometry(ct.n_states, K, P)[0]
-            e = fused_vs_plain(ct, t, (P, P - 3, 3 * NB * K, 1, 0))
+            e = fused_vs_plain(ct, t, (P, P - 3, 3 * sc.TILE, 1, 0))
             emit({"phase": "fused_vs_plain", "patterns": label, "text": kind,
                   "P": P, "Q": ct.n_states, "skip_plan": ct.plan.skip, **e})
             errs["schain_fused"] = max(errs["schain_fused"], e["max_abs_err"])
-            emit_f_check(ct, t, (P, P - 3, 3 * NB * K, 1, 0),
+            emit_f_check(ct, t, (P, P - 3, 3 * sc.TILE, 1, 0),
                          dict(patterns=label, text=kind, P=P))
             for inst in e["instances"]:
                 skipped_total[inst] += e["skipped_tiles"][inst]
@@ -3135,6 +3439,12 @@ def main() -> int:
           "staged_entry_points_equal": True,
           "staged_uploads": corpus.uploads})
     del corpus
+
+    # 3b. Log search: the tile instance's workloads (Q = 37..40).
+    log = log_phase(rt, reset, launches, only, quick)
+    errs["schain_fused"] = max(errs["schain_fused"], log["max_abs_err"])
+    check(log["max_abs_err"] == 0, "schain_fused differs from its plain "
+          "version on the log-search workloads")
 
     # 4. The split kernels on their paths, and the tokenizer.
     wtext = rng.choice(WORD_CHARS, size=1 << 20).tobytes()

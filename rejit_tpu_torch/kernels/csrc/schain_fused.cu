@@ -22,16 +22,17 @@
 // start state q to (f = end state, m = last accepting position, i = its
 // pattern id); summaries compose associatively, the later match winning.
 // The packed table entry is next*256 + (accept_pid + 1); a step at a
-// position >= n changes nothing.
+// position >= n changes nothing. The dead state (when the tables have one)
+// absorbs and never accepts: a thread that reaches it is final.
 //
 // The TPU kernel ran its grid right to left on one core and carried the
 // suffix across grid steps in SMEM. CUDA blocks run concurrently and in no
 // order, so the carry is explicit, in three launches: each CUDA block
 // summarises its segment of the text; one block composes the segment
-// summaries right to left (schain_carry_kernel, a doubling scan seeded with
-// `seed`) into each segment's exclusive suffix, and G; each CUDA block then
-// walks its segment right to left from that suffix and emits L (and I) or
-// counts. Two instances of the two segment passes:
+// summaries right to left (a doubling scan seeded with `seed`) into each
+// segment's exclusive suffix, and G; each CUDA block then walks its
+// segment right to left from that suffix and emits L (and I) or counts.
+// Two instances of the two segment passes:
 //
 // The sweep instance (Q <= 32; sweep_summary_kernel, sweep_carry_kernel,
 // sweep_emit_kernel). A group of W lanes (W the power of two >= Q) holds
@@ -50,19 +51,50 @@
 // vector's m (and i) at the next state by __shfl_sync, and keeps it if it
 // is a match, else this byte's accept. The first idle lane (q = Q) steps
 // to the start state after the byte, so it reads boundary j+1's L in its
-// own shuffle. That is W independent steps per byte, where the tile
-// instance takes 2*Q + (K+1)/2 dependent ones. The groups of a warp step
-// in lockstep (whole-warp shuffles of width W). Text is read 16 bytes at a
-// time; L values are stored 16 at a time.
+// own shuffle. That is W independent steps per byte. The groups of a warp
+// step in lockstep (whole-warp shuffles of width W). Text is read 16 bytes
+// at a time; L values are stored 16 at a time.
 //
-// The tile instance (Q <= 256; schain_tile_kernel): per CUDA block, tiles
-// of NB sub-blocks of K bytes, classes and start states staged in shared
-// memory from the bytes (256-entry tables there too, with the whole Q*C
-// table: C*Q <= 4096 words); one thread per (sub-block, state) runs its K
-// bytes (phase 1); a doubling scan over the NB sub-blocks in shared memory
-// gives each sub-block's exclusive suffix; one thread per boundary runs to
-// its sub-block end and splices that suffix at its end state by a direct
-// index (phase 3, as dfa_phase3).
+// The tile instance (Q <= 256; tile_summary_kernel, tile_carry_kernel,
+// tile_emit_kernel; the wrapper takes it for Q > 32). A vector of W >= Q
+// states a byte, as the sweep takes, costs Q/32 warp steps a byte: 40 to
+// 256 states would cost more than the old per-boundary design at once. On
+// text, though, a thread of a real pattern dies (reaches the dead state)
+// within a few bytes of its start: this instance makes the work follow the
+// live threads. Tiles of 4096 bytes (their text copied into shared memory
+// by cp.async, 16 bytes a thread, while the tile before is walked; classes
+// staged from it 16 bytes at a time):
+// - The walk path. Each boundary takes its first step as it is staged;
+//   those still live join a warp queue (as dfa_phases.cu's: a lane whose
+//   walk is done takes the next), with the Q state walks from the tile's
+//   first byte (the tile's map, which moves the carry). A walk runs to the
+//   dead state or the tile end (or n) and there takes the carry, the
+//   suffix right of the tile, at its end state: L, I and F come from one
+//   shared-memory lookup each. Pass 1 walks its Q states left to right
+//   through the segment and stops once they are all dead, which on text
+//   is within the segment's first tile. The carry pass composes the
+//   segment summaries in shared memory, a group of >= 64 threads holding
+//   a state vector per run of segments.
+// - The grid path keeps the old worst case: a tile whose queue runs past
+//   kCapRounds rounds (256 steps a lane: some thread lives that long) is
+//   done in ranges of NB pieces of kPiece = 32 bytes (the wrapper's
+//   PIECE): each (piece, state) is run across its piece (stopping at the
+//   dead state), a doubling scan in shared memory gives each piece's
+//   exclusive suffix in the range, and each boundary runs to its piece
+//   end and is spliced there: 16.5 steps a byte. The next
+//   tiles then take the grid path at once, for a run that doubles (up to
+//   64 tiles) while the walks keep failing; and a tile through which pass
+//   1 saw one of its states live takes it at once (pass 1's `hint`), so
+//   a text whose threads never die pays no failed try.
+// Both passes are held to kTileBlocks blocks an SM by their registers
+// (the queues are latency-bound: more warps a scheduler beat more
+// registers, measured on the card); a grid range holds NB pieces with
+// NB*Q <= 1024 (the wrapper's GRID_STATES), its maps in the space of the
+// walk path's list.
+// Tensor cores have no role here: a DFA step is a data-dependent table
+// lookup, not a product of dense tiles (the matmul engine's one-hot
+// products, engine/matmul.py, show what forcing it costs). The tile
+// instance does not depend on the fused block K.
 //
 // The fast-forward tile skip (the TPU's chunk skip, schain_pallas.py
 // _kernel), in both instances: a tile wholly below n whose first byte
@@ -70,8 +102,8 @@
 // the summary (dead, first-byte accept position, its pid) and L = -1
 // everywhere but at its edge boundary. The emit pass takes it with no
 // automaton steps when the carry's m at the dead state is -1, which makes
-// the shortcut exact for any seed; the tile instance's summary pass takes
-// it too, the sweep instance's pass 1 stops at the all-dead state instead.
+// the shortcut exact for any seed; the summary passes stop at the
+// all-dead state instead.
 //
 // Bounds on an H100: the function reads 1 byte of text per text byte and
 // writes 4 (L) or 8 (L and I) or nothing (count); it needs Q automaton
@@ -80,441 +112,926 @@
 // by operations. The sweep instance takes W steps per byte in pass 3, each
 // one shared-memory load and one shuffle (three in L+I mode), and pass 1's
 // steps until every state is dead; the shared-memory and shuffle pipe
-// bounds it. Device-memory traffic beyond the
-// text and the outputs: the (nseg, 3, Q) segment summaries and, for the
-// sweep, 3 KB of chunk suffixes per segment.
+// bounds it. The tile instance's walk path takes the live steps (on text
+// one to a few a boundary) plus one carry lookup a boundary and Q state
+// walks a tile; its grid path 2*Q + 16.5 steps a byte. Device-memory
+// traffic beyond the text and the outputs: the (nseg, 3, Q) segment
+// summaries and, for the sweep, 3 KB of chunk suffixes per segment, for
+// the tile instance a byte a tile (hint).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;           // threads of a tile block
-constexpr int kCarryThreads = 1024;     // threads of the carry block
+constexpr int kCarryThreads = 1024;     // threads of a carry block, at most
+constexpr int kCarryGroups = 15;        // named barriers 1..15
+constexpr int kCarryAhead = 4;          // segments loaded ahead
 constexpr int kSilent = 1;              // flags: class is silent
 constexpr int kUniform = 2;             // flags: class sends all to dead
 constexpr size_t kSmemDefault = 48 * 1024;
 constexpr size_t kSmemLimit = 232448;   // 227 KB per block on sm_90
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxSegments = 1024;     // CUDA blocks of a segment pass
 
 enum Mode : int { kSummary = 0, kEmitL = 1, kEmitLI = 2, kCount = 3 };
 
-struct Params {
-  const uint8_t* text;   // (P,) padded text
+// ---------------------------------------------------------------------------
+// The tile instance (Q <= 256)
+// ---------------------------------------------------------------------------
+
+constexpr int kTileThreads = 256;               // threads of a tile block
+constexpr int kTileBlocks = 5;                  // blocks an SM (registers)
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kTB = 4096;                       // bytes of a tile
+constexpr int kLead = 16;                       // bytes staged before a tile
+constexpr int kRaw = kLead + kTB;               // a raw text buffer
+constexpr int kG = 32;                          // s_cls's block of bytes
+constexpr int kGP = 36;                         // a block's stride in s_cls
+constexpr int kPiece = 32;                      // bytes of a grid-path piece
+constexpr int kLgPiece = 5;
+constexpr int kWarpBytes = kTB / kTileWarps;    // 512: 16 bytes a lane
+constexpr int kWalkSteps = 4;                   // steps between queue checks
+constexpr int kCapRounds = 64;                  // a warp's queue rounds a tile
+constexpr int kSummaryCapRounds = 16;           // the same in pass 1
+constexpr int kStreakMax = 64;                  // longest grid run, a miss
+constexpr int kStateItem = 0x10000;             // walk id bit: a state walk
+
+__host__ __device__ inline size_t round16(size_t x) {
+  return (x + 15) & ~size_t(15);
+}
+
+struct TileParams {
+  const uint8_t* text;   // (P,) padded text, 16-byte aligned
   const int* tab;        // (Q*C,) next*256 + accept+1
   const int* class_of;   // (256,) byte -> class
   const int* start_of;   // (256,) start state of a boundary after byte b
   const int* flags;      // (256,) kSilent | kUniform per byte
   int* seg_sum;          // (nseg, 3, Q) segment summaries (pass 1 out)
   const int* seg_x;      // (nseg, 3, Q) segment exclusive suffixes (pass 3 in)
-  int* L;                // (P+1,)
-  int* I;                // (P+1,) in kEmitLI
-  uint8_t* F;            // (P+1,) end states (emit_f), or null
+  int* L;                // (P+1,), 16-byte aligned
+  int* I;                // (P+1,) in kEmitLI, 16-byte aligned
+  uint8_t* F;            // (P+1,) end states (emit_f), or null; aligned
   int* counts;           // [0] count, [1] tiles skipped by pass 3
-  int Q, C, K, NB, P, n;
+  uint8_t* hint;         // (ntiles,) pass 1: a state lives through the tile
+  int Q, C, NB, P, n;    // NB pieces of kPiece bytes a grid range
   int start0;            // start state at boundary 0 (the begin context)
-  int dead;              // dead state (skip only)
-  int skip;              // the FF tile skip is on
+  int dead;              // absorbing, never-accepting state, or -1
+  int skip;              // the FF tile skip is on (needs dead >= 0)
   int ntiles, tiles_per_seg;
 };
 
-// Shared-memory words of a tile block.
-size_t tile_smem_words(int mode, int Q, int C, int K, int NB, bool emit_f) {
-  const size_t NBP = NB + 1, KP = (K & 1) ? K : K + 1, NBQ = (size_t)NB * Q;
-  size_t w = (size_t)Q * C + 3 * 256 + K * NBP + 9 * NBQ + 3 * Q;
-  if (mode != kSummary) w += K * NBP;                 // start states
-  if (mode == kEmitL || mode == kEmitLI) w += 2 * NB * KP;  // L/I stage
-  if (emit_f && mode != kSummary) w += NB * KP;      // F stage
-  return w;
+// Shared memory of a tile block, in bytes from its start.
+struct TileLayout {
+  size_t tab, maps, vec, walk, raw, cls, res, list, grid, total;
+};
+
+__host__ __device__ inline TileLayout tile_layout(bool emit, int Q, int C,
+                                                  int NB) {
+  TileLayout l;
+  size_t o = 0;
+  l.tab = o;  o += round16((size_t)Q * C * 4);      // the table
+  l.maps = o; o += 3 * 256;                          // class, start, flags
+  l.vec = o;  o += round16((size_t)6 * Q * 4);      // carries / r, m, i
+  l.walk = o; o += round16((size_t)Q * 4);          // state walks
+  l.raw = o;  o += 2 * (size_t)kRaw;                 // two raw tiles
+  l.cls = o;  o += (size_t)(kTB / kG) * kGP;         // classes
+  l.res = o;  o += emit ? (size_t)kTB * 4 : 0;       // boundary walks
+  // The walk path's live boundaries and the grid path's piece maps share
+  // their space: a tile takes one path at a time.
+  const size_t list = emit ? (size_t)kTB * 2 : 0;
+  const size_t grid = (size_t)3 * NB * Q * 4;
+  l.list = l.grid = o;
+  o += list > grid ? list : grid;
+  l.total = o;
+  return l;
 }
 
-// No __launch_bounds__: with __launch_bounds__(kThreads) ptxas held the
-// L-mode instance to 48 registers and spilled 20 bytes; without it every
-// instance takes 48-56 registers and spills nothing (sm_90a).
-template <int kMode>
-__global__ void schain_tile_kernel(Params p) {
-  extern __shared__ int smem[];
-  __shared__ int s_red[kThreads / 32];
-  const int Q = p.Q, C = p.C, K = p.K, NB = p.NB;
-  const int NBP = NB + 1;                 // odd row stride: no bank conflicts
-  const int KP = (K & 1) ? K : K + 1;
-  const int NBQ = NB * Q;
-  constexpr bool kEmit = kMode != kSummary;
-  constexpr bool kOut = kMode == kEmitL || kMode == kEmitLI;
-  const bool emit_f = kOut && p.F != nullptr;
+// Index of tile byte j in s_cls: blocks of kG bytes kGP apart, so that the
+// lanes of a warp reading byte k of 32 blocks hit 32 banks.
+__device__ __forceinline__ int cidx(int j) { return j + ((j >> 5) << 2); }
 
-  int* s_tab = smem;                      // Q*C
-  int* s_cls_of = s_tab + Q * C;          // 256
-  int* s_start = s_cls_of + 256;          // 256
-  int* s_flags = s_start + 256;           // 256
-  int* s_cls = s_flags + 256;             // K*NBP, row k = byte k of each sub-block
-  int* s_st = s_cls + K * NBP;            // K*NBP start states (emit)
-  int* Sf = s_st + (kEmit ? K * NBP : 0); // NB*Q sub-block summaries [b*Q+q]
-  int* Sm = Sf + NBQ;
-  int* Si = Sm + NBQ;
-  int* Xa = Si + NBQ;                     // 2 x 3 x NB*Q scan buffers
-  int* Xb = Xa + 3 * NBQ;
-  int* cf = Xb + 3 * NBQ;                 // carry: suffix right of the tile
-  int* cm = cf + Q;
-  int* ci = cm + Q;
-  int* s_L = ci + Q;                      // NB*KP output stage (kOut)
-  int* s_I = s_L + NB * KP;
-  int* s_F = s_I + NB * KP;               // NB*KP end states (emit_f)
+__device__ __forceinline__ uint32_t classes4(uint32_t v, const uint8_t* m) {
+  return (uint32_t)m[v & 255u] | (uint32_t)m[(v >> 8) & 255u] << 8 |
+         (uint32_t)m[(v >> 16) & 255u] << 16 | (uint32_t)m[v >> 24] << 24;
+}
 
-  const int tid = threadIdx.x;
-  const int seg = blockIdx.x;
-  for (int x = tid; x < Q * C; x += kThreads) s_tab[x] = p.tab[x];
-  for (int x = tid; x < 256; x += kThreads) {
-    s_cls_of[x] = p.class_of[x];
-    s_start[x] = p.start_of[x];
-    s_flags[x] = p.flags[x];
+// One automaton step at tile byte j. A walk's result is packed: end state
+// | (pid + 1) << 8 | (m + 1) << 16, m the last accept's position from the
+// tile's first byte (-1: none, and then pid + 1 is 0), so the identity map
+// at q is q; acc holds the upper bits.
+__device__ __forceinline__ void walk_step(const uint8_t* s_cls,
+                                          const int* s_tab, int C, int& S,
+                                          int& j, uint32_t& acc) {
+  const int v = s_tab[S * C + s_cls[cidx(j)]];
+  const uint32_t a1 = (uint32_t)v & 255u;
+  if (a1) acc = (a1 << 8) | ((uint32_t)(j + 1) << 16);
+  S = v >> 8;
+  ++j;
+}
+
+// a, then the map `row` (indexed by state): the later match wins.
+__device__ __forceinline__ uint32_t compose(uint32_t a, const uint32_t* row) {
+  const uint32_t e = row[a & 255u];
+  return (e >> 16) ? e : ((a & ~255u) | (e & 255u));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start copying tile t's bytes, and the kLead bytes before it, into raw
+// (zeros before the text and past P), 16 bytes a thread.
+__device__ __forceinline__ void prefetch_tile(const TileParams& p,
+                                              uint8_t* raw, int t) {
+  const long long lo = (long long)t * kTB - kLead;
+  for (int c = threadIdx.x; c < kRaw / 16; c += kTileThreads) {
+    const long long pos = lo + 16LL * c;
+    const long long left = (long long)p.P - pos;
+    const int bytes =
+        pos < 0 ? 0 : (int)(left < 0 ? 0 : left < 16 ? left : 16);
+    cp_async16(raw + 16 * c, bytes ? p.text + pos : p.text, bytes);
   }
-  for (int q = tid; q < Q; q += kThreads) {
-    if (kEmit) {
-      const int* x = p.seg_x + (size_t)seg * 3 * Q;
-      cf[q] = x[q];
-      cm[q] = x[Q + q];
-      ci[q] = x[2 * Q + q];
-    } else {
-      cf[q] = q;
-      cm[q] = -1;
-      ci[q] = -1;
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Classes of this thread's 16 bytes (tile bytes 16*tid ..) into s_cls;
+// returns the bytes as four words.
+__device__ __forceinline__ uint4 stage_classes(const uint8_t* rb,
+                                               const uint8_t* s_map,
+                                               uint8_t* s_cls) {
+  const int x0 = 16 * threadIdx.x;
+  const uint4 v = *reinterpret_cast<const uint4*>(rb + x0);
+  uint32_t* d = reinterpret_cast<uint32_t*>(s_cls + (x0 >> 5) * kGP +
+                                            (x0 & 31));
+  d[0] = classes4(v.x, s_map);
+  d[1] = classes4(v.y, s_map);
+  d[2] = classes4(v.z, s_map);
+  d[3] = classes4(v.w, s_map);
+  return v;
+}
+
+__device__ __forceinline__ int byte_at(const uint4& v, int e) {
+  const uint32_t w = e < 4 ? v.x : e < 8 ? v.y : e < 12 ? v.z : v.w;
+  return (w >> (8 * (e & 3))) & 255;
+}
+
+struct Walk {
+  int id, S, j;
+  uint32_t acc;
+};
+
+// The calling warp's queue of `count` walks, each from its state at tile
+// byte j until the dead state or byte lim (dfa_phases.cu's run_queue: a
+// lane whose walk is done takes the next one). load(k) gives walk k,
+// finish(w) takes a finished walk. Returns false when the warp gives up:
+// after `cap` rounds of kWalkSteps steps, or when another warp of the
+// block has given up (*s_abort), the tile then takes the grid path.
+template <class Load, class Finish>
+__device__ __forceinline__ bool walk_queue(int count, int lim, int dead,
+                                           const uint8_t* s_cls,
+                                           const int* s_tab, int C, int cap,
+                                           volatile int* s_abort, Load load,
+                                           Finish finish) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lower = (1u << lane) - 1u;
+  int q = lane, head = 32;
+  bool has = q < count;
+  Walk w = {0, 0, 0, 0u};
+  if (has) w = load(q);
+  for (int round = 0; __any_sync(kFull, has); ++round) {
+    int stop = lane == 0 ? *s_abort : 0;
+    stop = __shfl_sync(kFull, stop, 0);
+    if (stop || round >= cap) {
+      if (lane == 0) *s_abort = 1;
+      return false;
+    }
+#pragma unroll
+    for (int u = 0; u < kWalkSteps; ++u) {
+      if (has && w.S != dead && w.j < lim)
+        walk_step(s_cls, s_tab, C, w.S, w.j, w.acc);
+    }
+    const bool done = has && (w.S == dead || w.j >= lim);
+    const unsigned fin = __ballot_sync(kFull, done);
+    if (fin) {
+      const int next = head + __popc(fin & lower);
+      head += __popc(fin);
+      if (done) {
+        finish(w);
+        q = next;
+        has = q < count;
+        if (has) w = load(q);
+      }
     }
   }
-  __syncthreads();
+  return true;
+}
 
-  const int nb = p.P / K;
-  const int n = p.n;
-  const int tile_bytes = NB * K;
+// The grid path of one range [x0, x1) of a tile: NB pieces of kPiece
+// bytes.
+struct Grid {
+  int Q, C, dead, NB, lgNB;
+  int ppr, hp, hq;       // pieces a round, this thread's piece and state
+  bool on;               // this thread has a (piece, state) slot
+  const uint8_t* s_cls;
+  const int* s_tab;
+  uint32_t *Sp, *A, *B;  // piece maps, and two buffers of the scan
+};
+
+// Sp[b*Q + q]: piece b of [x0, x1) run from state q (bytes at or past lim
+// are the identity), stopping at the dead state.
+__device__ __forceinline__ void grid_pieces(const Grid& g, int x0, int x1,
+                                            int lim) {
+  const int nbt = (x1 - x0 + kPiece - 1) >> kLgPiece;
+  if (!g.on) return;
+  for (int b = g.hp; b < nbt; b += g.ppr) {
+    int S = g.hq, j = x0 + (b << kLgPiece);
+    const int je = min(min(j + kPiece, x1), lim);
+    uint32_t acc = 0;
+    while (j < je && S != g.dead) walk_step(g.s_cls, g.s_tab, g.C, S, j, acc);
+    g.Sp[b * g.Q + g.hq] = (uint32_t)S | acc;
+  }
+}
+
+// Exclusive suffixes X_b = S_{b+1} o ... o S_{nbt-1} inside the range (a
+// doubling scan, Hillis-Steele); returns the buffer holding them. Starts
+// and ends with a barrier.
+__device__ __forceinline__ const uint32_t* grid_suffixes(const Grid& g,
+                                                         int nbt) {
+  uint32_t* A = g.A;
+  uint32_t* B = g.B;
+  __syncthreads();                       // Sp is written
+  if (g.on) {
+    for (int b = g.hp; b < nbt; b += g.ppr)
+      A[b * g.Q + g.hq] =
+          b + 1 < nbt ? g.Sp[(b + 1) * g.Q + g.hq] : (uint32_t)g.hq;
+  }
+  __syncthreads();
+  for (int d = 1; d < nbt; d *= 2) {
+    if (g.on) {
+      for (int b = g.hp; b < nbt; b += g.ppr) {
+        uint32_t a = A[b * g.Q + g.hq];
+        if (b + d < nbt) a = compose(a, A + (b + d) * g.Q);
+        B[b * g.Q + g.hq] = a;
+      }
+    }
+    __syncthreads();
+    uint32_t* T = A;
+    A = B;
+    B = T;
+  }
+  return A;
+}
+
+// Grid-path boundaries of [x0, x1): each runs from its start state to its
+// piece end (stopping at the dead state) and takes the piece's exclusive
+// suffix X at its end state; the result (end state at x1) goes to s_res.
+// Slot w is offset w >> lgNB of piece w & (NB-1), so a warp's lanes read
+// the same offset of different pieces.
+template <class StartAt>
+__device__ __forceinline__ void grid_bounds(const Grid& g, int x0, int x1,
+                                            int lim, const uint32_t* X,
+                                            uint32_t* s_res,
+                                            StartAt start_at) {
+  const int nbt = (x1 - x0 + kPiece - 1) >> kLgPiece;
+  for (int w = threadIdx.x; w < g.NB << kLgPiece; w += kTileThreads) {
+    const int b = w & (g.NB - 1);
+    const int x = x0 + (b << kLgPiece) + (w >> g.lgNB);
+    if (b >= nbt || x >= x1) continue;
+    int S = start_at(x), j = x;
+    const int je = min(min(x0 + ((b + 1) << kLgPiece), x1), lim);
+    uint32_t acc = 0;
+    while (j < je && S != g.dead) walk_step(g.s_cls, g.s_tab, g.C, S, j, acc);
+    s_res[x] = compose((uint32_t)S | acc, X + b * g.Q);
+  }
+}
+
+__device__ __forceinline__ Grid make_grid(const TileParams& p,
+                                          const uint8_t* s_cls,
+                                          const int* s_tab, uint32_t* grid) {
+  Grid g;
+  g.Q = p.Q;
+  g.C = p.C;
+  g.dead = p.dead;
+  g.NB = p.NB;
+  g.lgNB = __ffs(p.NB) - 1;
+  g.ppr = kTileThreads / p.Q;
+  g.hp = threadIdx.x / p.Q;
+  g.hq = threadIdx.x - g.hp * p.Q;
+  g.on = g.hp < g.ppr;
+  g.s_cls = s_cls;
+  g.s_tab = s_tab;
+  g.Sp = grid;
+  g.A = grid + p.NB * p.Q;
+  g.B = g.A + p.NB * p.Q;
+  return g;
+}
+
+// Tables and byte maps into shared memory.
+__device__ __forceinline__ void stage_tile_tables(const TileParams& p,
+                                                  int* s_tab,
+                                                  uint8_t* s_map) {
+  for (int x = threadIdx.x; x < p.Q * p.C; x += kTileThreads)
+    s_tab[x] = __ldg(p.tab + x);
+  for (int x = threadIdx.x; x < 256; x += kTileThreads) {
+    s_map[x] = (uint8_t)__ldg(p.class_of + x);
+    s_map[256 + x] = (uint8_t)__ldg(p.start_of + x);
+    s_map[512 + x] = (uint8_t)__ldg(p.flags + x);
+  }
+}
+
+// Pass 1: the segment's summary from every state q. The segment's tiles
+// are walked left to right with the state r[q] that q has reached (and
+// its last accept): on the walk path a queue of Q walks through the tile;
+// when a walk passes kSummaryCapRounds rounds, or some r[q] lived through
+// the tile before, the grid path (piece maps and their scan, in ranges of
+// NB pieces) gives the tile's map and r moves through it. The pass stops
+// when every r[q] is dead (nothing after changes the summary) or at n.
+// hint[t] records for pass 3 whether some r[q] lived through tile t (0
+// for the tiles the pass does not reach): where one does, the text's
+// threads live long there, and pass 3 takes the grid path at once.
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
+tile_summary_kernel(TileParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_abort;
+  const int Q = p.Q, C = p.C, n = p.n, dead = p.dead;
+  const TileLayout lay = tile_layout(false, Q, C, p.NB);
+  int* s_tab = reinterpret_cast<int*>(smem + lay.tab);
+  uint8_t* s_map = smem + lay.maps;
+  int* r = reinterpret_cast<int*>(smem + lay.vec);
+  int* rm = r + Q;
+  int* ri = rm + Q;
+  uint32_t* s_walk = reinterpret_cast<uint32_t*>(smem + lay.walk);
+  uint8_t* s_raw = smem + lay.raw;
+  uint8_t* s_cls = smem + lay.cls;
+  const Grid g = make_grid(p, s_cls, s_tab,
+                           reinterpret_cast<uint32_t*>(smem + lay.grid));
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int t_lo = blockIdx.x * p.tiles_per_seg;
+  const int t_hi = min(t_lo + p.tiles_per_seg, p.ntiles);
+  const int HB = p.NB * kPiece;
+
+  stage_tile_tables(p, s_tab, s_map);
+  for (int q = tid; q < Q; q += kTileThreads) {
+    r[q] = q;
+    rm[q] = -1;
+    ri[q] = -1;
+  }
+  if (t_lo < t_hi) prefetch_tile(p, s_raw, t_lo);
+  int buf = 0, t = t_lo;
+  bool lived = false;                     // an r[q] lived through tile t-1
+  for (; t < t_hi; ++t) {
+    const int base = t * kTB;
+    if (base >= n) break;                 // the identity from here on
+    const int len = min(kTB, p.P - base);
+    const int lim = min(n - base, len);
+    const uint8_t* rb = s_raw + buf * kRaw + kLead;
+    cp_async_wait_all();
+    __syncthreads();                      // tile t's bytes; tile t-1 done
+    if (t + 1 < t_hi) prefetch_tile(p, s_raw + (buf ^ 1) * kRaw, t + 1);
+    if (tid == 0) s_abort = 0;
+    stage_classes(rb, s_map, s_cls);
+    __syncthreads();
+
+    bool walked = false;
+    if (!lived) {
+      const int mine = Q > warp ? (Q - warp + kTileWarps - 1) / kTileWarps : 0;
+      auto load = [&](int k) {
+        const int q = warp + kTileWarps * k;
+        return Walk{q, r[q], 0, 0u};
+      };
+      auto finish = [&](const Walk& w) {
+        s_walk[w.id] = (uint32_t)w.S | w.acc;
+      };
+      const bool ok = walk_queue(mine, lim, dead, s_cls, s_tab, C,
+                                 kSummaryCapRounds, &s_abort, load, finish);
+      walked = !__syncthreads_or(!ok);
+    }
+    if (walked) {
+      for (int q = tid; q < Q; q += kTileThreads) {
+        const uint32_t h = s_walk[q];
+        r[q] = h & 255u;
+        if (h >> 16) {
+          rm[q] = base + (int)(h >> 16) - 1;
+          ri[q] = (int)((h >> 8) & 255u) - 1;
+        }
+      }
+    } else {
+      // The grid path, range by range from the left.
+      for (int x0 = 0; x0 < len; x0 += HB) {
+        const int x1 = min(x0 + HB, len);
+        grid_pieces(g, x0, x1, lim);
+        const uint32_t* X =
+            grid_suffixes(g, (x1 - x0 + kPiece - 1) / kPiece);
+        for (int q = tid; q < Q; q += kTileThreads) {
+          const uint32_t h = compose(g.Sp[r[q]], X);   // S_0 o X_0 at r[q]
+          r[q] = h & 255u;
+          if (h >> 16) {
+            rm[q] = base + (int)(h >> 16) - 1;
+            ri[q] = (int)((h >> 8) & 255u) - 1;
+          }
+        }
+        __syncthreads();                  // Sp and X are read
+      }
+    }
+    bool alive = false;
+    for (int q = tid; q < Q; q += kTileThreads) alive |= r[q] != dead;
+    buf ^= 1;
+    const bool any = __syncthreads_or(alive);
+    lived = any && lim == len;
+    if (tid == 0) p.hint[t] = lived;
+    if (!any) {                           // every state is dead
+      ++t;
+      break;
+    }
+  }
+  for (int u = t + tid; u < t_hi; u += kTileThreads) p.hint[u] = 0;
+  cp_async_wait_all();
+  int* out = p.seg_sum + (size_t)blockIdx.x * 3 * Q;
+  for (int q = tid; q < Q; q += kTileThreads) {
+    out[q] = r[q];
+    out[Q + q] = rm[q];
+    out[2 * Q + q] = ri[q];
+  }
+}
+
+// The carry moves left past a map h (packed, positions from `base`):
+// (n*)[q] = h then c.
+__device__ __forceinline__ void carry_through(uint32_t h, int base, int q,
+                                              const int* c, int* nc, int Q) {
+  const int S = h & 255u;
+  nc[q] = c[S];
+  const int m = c[Q + S];
+  if (m >= 0) {
+    nc[Q + q] = m;
+    nc[2 * Q + q] = c[2 * Q + S];
+  } else if (h >> 16) {
+    nc[Q + q] = base + (int)(h >> 16) - 1;
+    nc[2 * Q + q] = (int)((h >> 8) & 255u) - 1;
+  } else {
+    nc[Q + q] = -1;
+    nc[2 * Q + q] = -1;
+  }
+}
+
+// Boundaries [x0, x1) of the tile at base from s_res (end state at the
+// range's right edge, where the carry c = (f, m, i) starts): L, I and F
+// written 16 at a time (whole 16-boundary groups) or counted; -1 past n.
+template <int kMode>
+__device__ __forceinline__ void emit_range(const TileParams& p, int base,
+                                           int x0, int x1,
+                                           const uint32_t* s_res,
+                                           const int* c, bool emit_f,
+                                           int& cnt) {
+  const int Q = p.Q;
+  for (int x = x0 + 16 * threadIdx.x; x < x1; x += 16 * kTileThreads) {
+    const int pos0 = base + x;
+    const int nbd = min(16, x1 - x);
+    int Lv[16], Iv[16];
+    uint32_t Fw[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      Lv[e] = -1;
+      Iv[e] = -1;
+      if (e < nbd) {
+        const uint32_t h = s_res[x + e];
+        const int S = h & 255u;
+        if (pos0 + e <= p.n) {
+          const int m = c[Q + S];
+          if (m >= 0) {
+            Lv[e] = m;
+            if (kMode == kEmitLI) Iv[e] = c[2 * Q + S];
+          } else if (h >> 16) {
+            Lv[e] = base + (int)(h >> 16) - 1;
+            Iv[e] = (int)((h >> 8) & 255u) - 1;
+          }
+        }
+        if (kMode != kCount && emit_f)
+          Fw[e >> 2] |= (uint32_t)(c[S] & 255) << (8 * (e & 3));
+        if (kMode == kCount) cnt += Lv[e] >= 0;
+      }
+    }
+    if (kMode == kCount) continue;
+    if (nbd == 16) {
+      int4* dL = reinterpret_cast<int4*>(p.L + pos0);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        dL[k] = make_int4(Lv[4 * k], Lv[4 * k + 1], Lv[4 * k + 2],
+                          Lv[4 * k + 3]);
+      if (kMode == kEmitLI) {
+        int4* dI = reinterpret_cast<int4*>(p.I + pos0);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          dI[k] = make_int4(Iv[4 * k], Iv[4 * k + 1], Iv[4 * k + 2],
+                            Iv[4 * k + 3]);
+      }
+      if (emit_f)
+        *reinterpret_cast<uint4*>(p.F + pos0) =
+            make_uint4(Fw[0], Fw[1], Fw[2], Fw[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        if (e < nbd) {
+          p.L[pos0 + e] = Lv[e];
+          if (kMode == kEmitLI) p.I[pos0 + e] = Iv[e];
+          if (emit_f) p.F[pos0 + e] = (uint8_t)(Fw[e >> 2] >> (8 * (e & 3)));
+        }
+      }
+    }
+  }
+}
+
+// Pass 3: the segment's tiles right to left from its exclusive suffix (the
+// carry). A tile takes the FF skip when its rule holds; else the walk
+// path: each boundary takes its first step as it is staged, and those
+// still live (not dead, before lim) join the warp's queue beside a share
+// of the Q state walks (the tile's map, for the carry); each walk runs to
+// the dead state or lim, where it takes the carry. A tile whose queue
+// gives up takes the grid path (pieces of kPiece bytes in ranges of NB
+// pieces, right to left: piece maps, their exclusive suffixes by a
+// doubling scan, each boundary run to its piece end and spliced there),
+// and so do the next `streak` tiles (doubling up to kStreakMax while walks
+// keep giving up); a tile through which pass 1 saw a state live (hint)
+// takes it at once, so a text whose threads never die pays no failed try.
+// The carry is double-buffered.
+template <int kMode>
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
+tile_emit_kernel(TileParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_abort;
+  __shared__ int s_red[2][kTileWarps];
+  const int Q = p.Q, C = p.C, n = p.n, dead = p.dead;
+  const TileLayout lay = tile_layout(true, Q, C, p.NB);
+  int* s_tab = reinterpret_cast<int*>(smem + lay.tab);
+  uint8_t* s_map = smem + lay.maps;
+  const uint8_t* s_sob = s_map + 256;
+  const uint8_t* s_flg = s_map + 512;
+  int* s_vec = reinterpret_cast<int*>(smem + lay.vec);   // 2 carries
+  uint32_t* s_walk = reinterpret_cast<uint32_t*>(smem + lay.walk);
+  uint8_t* s_raw = smem + lay.raw;
+  uint8_t* s_cls = smem + lay.cls;
+  uint32_t* s_res = reinterpret_cast<uint32_t*>(smem + lay.res);
+  uint16_t* s_list = reinterpret_cast<uint16_t*>(smem + lay.list);
+  const Grid g = make_grid(p, s_cls, s_tab,
+                           reinterpret_cast<uint32_t*>(smem + lay.grid));
+  constexpr bool kOut = kMode == kEmitL || kMode == kEmitLI;
+  const bool emit_f = kOut && p.F != nullptr;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int seg = blockIdx.x;
   const int t_lo = seg * p.tiles_per_seg;
   const int t_hi = min(t_lo + p.tiles_per_seg, p.ntiles);
-  int cnt = 0, skipped = 0;
+  const int HB = p.NB * kPiece;
 
-  if (kEmit && seg == gridDim.x - 1 && tid == 0) {
+  stage_tile_tables(p, s_tab, s_map);
+  for (int q = tid; q < Q; q += kTileThreads) {
+    const int* x = p.seg_x + (size_t)seg * 3 * Q;
+    s_vec[q] = x[q];
+    s_vec[Q + q] = x[Q + q];
+    s_vec[2 * Q + q] = x[2 * Q + q];
+  }
+  if (t_lo < t_hi) prefetch_tile(p, s_raw, t_hi - 1);
+  __syncthreads();
+
+  int cnt = 0, skipped = 0;
+  if (seg == gridDim.x - 1 && tid == 0) {
     // Boundary P: the last segment's carry is the seed.
-    const int st = s_start[p.text[p.P - 1]];
-    const int m = n == p.P ? cm[st] : -1;
+    const int st = s_sob[p.text[p.P - 1]];
+    const int m = n == p.P ? s_vec[Q + st] : -1;
     if (kMode == kCount) {
       cnt += m >= 0;
     } else {
       p.L[p.P] = m;
-      if (kMode == kEmitLI) p.I[p.P] = n == p.P ? ci[st] : -1;
-      if (emit_f) p.F[p.P] = (uint8_t)cf[st];
+      if (kMode == kEmitLI) p.I[p.P] = n == p.P ? s_vec[2 * Q + st] : -1;
+      if (emit_f) p.F[p.P] = (uint8_t)s_vec[st];
     }
   }
 
+  int buf = 0, cb = 0, streak = 0, grid_left = 0;
   for (int t = t_hi - 1; t >= t_lo; --t) {
-    const int base = t * tile_bytes;
-    const int nbt = min(NB, nb - t * NB);   // sub-blocks in this tile
-    const int nbytes = nbt * K;
+    const int base = t * kTB;
+    const int len = min(kTB, p.P - base);
+    const int lim = max(0, min(n - base, len));
+    const uint8_t* rb = s_raw + buf * kRaw + kLead;
+    cp_async_wait_all();
+    __syncthreads();                      // tile t's bytes; tile t+1 done
+    if (t - 1 >= t_lo) prefetch_tile(p, s_raw + (buf ^ 1) * kRaw, t - 1);
+    if (tid == 0) s_abort = 0;
+    const int* c = s_vec + cb * 3 * Q;    // the carry right of this tile
+    int* nc = s_vec + (cb ^ 1) * 3 * Q;
+    const int start_first = base == 0 ? p.start0 : s_sob[rb[-1]];
+    auto start_at = [&](int x) {
+      return x == 0 ? start_first : s_sob[rb[x - 1]];
+    };
 
-    if (base >= n) {
-      // Pad tile: identity maps, the carry is unchanged. Only boundary n
-      // can hold a match here (an empty match at EOT, from the carry); a
-      // boundary's end state is the carry's f at its start state.
-      if (kEmit) {
-        if (kOut) {
-          for (int x = tid; x < nbytes; x += kThreads) {
-            const int pos = base + x;
-            p.L[pos] = -1;
-            if (kMode == kEmitLI) p.I[pos] = -1;
-            if (emit_f)
-              p.F[pos] = (uint8_t)cf[pos == 0 ? p.start0
-                                              : s_start[p.text[pos - 1]]];
-          }
-        }
-        if (base == n && tid == 0) {
-          const int st = base == 0 ? p.start0 : s_start[p.text[base - 1]];
-          if (kMode == kCount) {
-            cnt += cm[st] >= 0;
-          } else {
-            p.L[base] = cm[st];
-            if (kMode == kEmitLI) p.I[base] = ci[st];
-          }
-        }
-      }
-      continue;
-    }
-
-    // Stage the tile's classes (and start states), and test the skip rule.
+    const int x0 = 16 * tid;
+    const uint4 v = stage_classes(rb, s_map, s_cls);
     int live = 0;
-    for (int x = tid; x < tile_bytes; x += kThreads) {
-      const int b = x / K;
-      const int k = x - b * K;
-      int c = 0, st = 0;
-      if (b < nbt) {
-        const int pos = base + x;
-        const int byte = p.text[pos];
-        c = s_cls_of[byte];
-        if (kEmit) st = pos == 0 ? p.start0 : s_start[p.text[pos - 1]];
-        live |= !(s_flags[byte] & (x == 0 ? kUniform : kSilent));
-      }
-      s_cls[k * NBP + b] = c;
-      if (kEmit) s_st[k * NBP + b] = st;
+    if (p.skip) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        if (x0 + e < len)
+          live |= !(s_flg[byte_at(v, e)] & (x0 + e == 0 ? kUniform : kSilent));
     }
-    const int any_live = __syncthreads_or(live);
+    const bool any_live = __syncthreads_or(live);
 
-    if (p.skip && !any_live && base + tile_bytes <= n &&
-        (!kEmit || cm[p.dead] < 0)) {
-      // Skip tile: summary (dead, base if the first byte accepts, pid).
-      const int c0 = s_cls[0];
-      int nf = 0, nm = -1, ni = -1;
-      if (tid < Q) {
-        const int a = (s_tab[tid * C + c0] & 255) - 1;
-        const int d = p.dead;
-        nf = cf[d];
-        if (cm[d] >= 0) {
-          nm = cm[d];
-          ni = ci[d];
+    if (p.skip && !any_live && base + kTB <= n && c[Q + dead] < 0) {
+      // The FF skip: boundary base keeps its first byte's accept; every
+      // other boundary is -1 and, like base, dead after its first byte.
+      const int c0 = s_map[rb[0]];
+      if (kOut) {
+        const int fd = c[dead] & 255;
+        const uint32_t f4 = emit_f ? (uint32_t)fd * 0x01010101u : 0u;
+        int4* dL = reinterpret_cast<int4*>(p.L + base + x0);
+        for (int k = 0; k < 4; ++k) dL[k] = make_int4(-1, -1, -1, -1);
+        if (kMode == kEmitLI) {
+          int4* dI = reinterpret_cast<int4*>(p.I + base + x0);
+          for (int k = 0; k < 4; ++k) dI[k] = make_int4(-1, -1, -1, -1);
+        }
+        if (emit_f)
+          *reinterpret_cast<uint4*>(p.F + base + x0) =
+              make_uint4(f4, f4, f4, f4);
+      }
+      if (tid == 0) {                     // its group of 16 is thread 0's
+        const int a = (s_tab[start_first * C + c0] & 255) - 1;
+        if (kMode == kCount) {
+          cnt += a >= 0;
         } else {
-          nm = a >= 0 ? base : -1;
-          ni = a;
+          p.L[base] = a >= 0 ? base : -1;
+          if (kMode == kEmitLI) p.I[base] = a;
         }
+        ++skipped;
       }
-      if (kEmit) {
-        if (kOut) {
-          // Every boundary's thread is in the dead state after its first
-          // byte: its end state is the carry's f at dead.
-          for (int x = tid; x < nbytes; x += kThreads) {
-            p.L[base + x] = -1;
-            if (kMode == kEmitLI) p.I[base + x] = -1;
-            if (emit_f) p.F[base + x] = (uint8_t)cf[p.dead];
-          }
-        }
-        if (tid == 0) {
-          const int a = (s_tab[s_st[0] * C + c0] & 255) - 1;
-          if (kMode == kCount) {
-            cnt += a >= 0;
-          } else {
-            p.L[base] = a >= 0 ? base : -1;
-            if (kMode == kEmitLI) p.I[base] = a;
-          }
-        }
+      for (int q = tid; q < Q; q += kTileThreads) {
+        const int a = (s_tab[q * C + c0] & 255) - 1;
+        nc[q] = c[dead];
+        nc[Q + q] = a >= 0 ? base : -1;
+        nc[2 * Q + q] = a;
       }
-      skipped += kEmit && tid == 0;
-      __syncthreads();                      // every read of the old carry
-      if (tid < Q) {
-        cf[tid] = nf;
-        cm[tid] = nm;
-        ci[tid] = ni;
-      }
-      __syncthreads();
+      cb ^= 1;
+      buf ^= 1;
       continue;
     }
 
-    // Phase 1: sub-block summaries from every state, lanes over sub-blocks.
-    for (int w = tid; w < NBQ; w += kThreads) {
-      const int b = w % NB;
-      const int q = w / NB;
-      int S = q, m = -1, i = -1;
-      const int pb = base + b * K;
-      const int kend = min(K, n - pb);
-      for (int k = 0; k < kend; ++k) {
-        const int val = s_tab[S * C + s_cls[k * NBP + b]];
-        const int a = (val & 255) - 1;
-        if (a >= 0) {
-          m = pb + k;
-          i = a;
+    bool walked = false;
+    if (p.hint[t]) {
+      // pass 1 saw a state live through this tile: the grid path
+    } else if (grid_left > 0) {
+      --grid_left;
+    } else {
+      // First steps, and the warp's list of live boundaries.
+      unsigned livemask = 0;
+      int prev = x0 == 0 ? -1 : rb[x0 - 1];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int x = x0 + e;
+        const int b = byte_at(v, e);
+        int S = x == 0 ? start_first : s_sob[prev];
+        uint32_t h = (uint32_t)S;
+        if (x < lim && S != dead) {
+          const int val = s_tab[S * C + s_map[b]];
+          const uint32_t a1 = (uint32_t)val & 255u;
+          S = val >> 8;
+          h = (uint32_t)S | (a1 ? (a1 << 8) | ((uint32_t)(x + 1) << 16) : 0u);
+          if (S != dead && x + 1 < lim) livemask |= 1u << e;
         }
-        S = val >> 8;
+        if (x < len) s_res[x] = h;
+        prev = b;
       }
-      Sf[b * Q + q] = S;
-      Sm[b * Q + q] = m;
-      Si[b * Q + q] = i;
-    }
-    __syncthreads();
-
-    // Exclusive suffixes X_b = S_{b+1} o ... o S_{NB-1} o carry: seed with
-    // the next sub-block's summary (the carry after the last), then
-    // X_b = X_b o X_{b+d} for d = 1, 2, 4, ... (Hillis-Steele).
-    int* A = Xa;
-    int* B = Xb;
-    for (int w = tid; w < NBQ; w += kThreads) {
-      const int b = w / Q;
-      const int q = w - b * Q;
-      if (b + 1 < NB) {
-        A[w] = Sf[w + Q];
-        A[NBQ + w] = Sm[w + Q];
-        A[2 * NBQ + w] = Si[w + Q];
+      const int own = __popc(livemask);
+      int incl = own;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += y;
+      }
+      uint16_t* wl = s_list + warp * kWarpBytes;
+      int at = incl - own;
+      for (unsigned rest = livemask; rest; rest &= rest - 1)
+        wl[at++] = (uint16_t)(x0 + __ffs(rest) - 1);
+      const int nlive = __shfl_sync(kFull, incl, 31);
+      __syncwarp();
+      const int mine =
+          nlive + (Q > warp ? (Q - warp + kTileWarps - 1) / kTileWarps : 0);
+      auto load = [&](int k) {
+        if (k < nlive) {
+          const int x = wl[k];
+          const uint32_t h = s_res[x];
+          return Walk{x, (int)(h & 255u), x + 1, h & ~255u};
+        }
+        const int q = warp + kTileWarps * (k - nlive);
+        return Walk{kStateItem | q, q, 0, 0u};
+      };
+      auto finish = [&](const Walk& w) {
+        const uint32_t h = (uint32_t)w.S | w.acc;
+        if (w.id & kStateItem) s_walk[w.id & 0xffff] = h;
+        else s_res[w.id] = h;
+      };
+      const bool ok = walk_queue(mine, lim, dead, s_cls, s_tab, C,
+                                 kCapRounds, &s_abort, load, finish);
+      walked = !__syncthreads_or(!ok);
+      if (walked) {
+        streak = 0;
       } else {
-        A[w] = cf[q];
-        A[NBQ + w] = cm[q];
-        A[2 * NBQ + w] = ci[q];
-      }
-    }
-    __syncthreads();
-    for (int d = 1; d < NB; d *= 2) {
-      for (int w = tid; w < NBQ; w += kThreads) {
-        const int b = w / Q;
-        int f = A[w], m = A[NBQ + w], i = A[2 * NBQ + w];
-        if (b + d < NB) {
-          const int o = (b + d) * Q + f;
-          const int mg = A[NBQ + o];
-          if (mg >= 0) {
-            m = mg;
-            i = A[2 * NBQ + o];
-          }
-          f = A[o];
-        }
-        B[w] = f;
-        B[NBQ + w] = m;
-        B[2 * NBQ + w] = i;
-      }
-      __syncthreads();
-      int* T = A;
-      A = B;
-      B = T;
-    }
-    const int* Xf = A;
-    const int* Xm = A + NBQ;
-    const int* Xi = A + 2 * NBQ;
-
-    // Phase 3: one thread per boundary (row k of sub-block b) runs to its
-    // sub-block end, then splices X_b at its end state.
-    if (kEmit) {
-      for (int w = tid; w < NB * K; w += kThreads) {
-        const int k = w / NB;
-        const int b = w - k * NB;
-        if (b >= nbt) continue;
-        const int pb = base + b * K;
-        int m = -1, i = -1;
-        int S = s_st[k * NBP + b];
-        if (pb + k <= n) {
-          const int jend = min(K, n - pb);
-          for (int j = k; j < jend; ++j) {
-            const int val = s_tab[S * C + s_cls[j * NBP + b]];
-            const int a = (val & 255) - 1;
-            if (a >= 0) {
-              m = pb + j;
-              i = a;
-            }
-            S = val >> 8;
-          }
-          const int o = b * Q + S;
-          if (Xm[o] >= 0) {
-            m = Xm[o];
-            i = Xi[o];
-          }
-        }
-        if (kMode == kCount) {
-          cnt += m >= 0;
-        } else {
-          s_L[b * KP + k] = m;
-          if (kMode == kEmitLI) s_I[b * KP + k] = i;
-          if (emit_f) s_F[b * KP + k] = Xf[b * Q + S];
-        }
+        streak = min(max(1, 2 * streak), kStreakMax);
+        grid_left = streak;
       }
     }
 
-    // The carry moves left past this tile: S_0 o X_0. The carry itself was
-    // last read before the scan, so it is overwritten in place.
-    if (tid < Q) {
-      const int f0 = Sf[tid];
-      const int mg = Xm[f0];
-      cf[tid] = Xf[f0];
-      cm[tid] = mg >= 0 ? mg : Sm[tid];
-      ci[tid] = mg >= 0 ? Xi[f0] : Si[tid];
-    }
-    __syncthreads();
-
-    if (kOut) {
-      for (int x = tid; x < nbytes; x += kThreads) {
-        const int so = (x / K) * KP + (x % K);
-        p.L[base + x] = s_L[so];
-        if (kMode == kEmitLI) p.I[base + x] = s_I[so];
-        if (emit_f) p.F[base + x] = (uint8_t)s_F[so];
+    if (walked) {
+      emit_range<kMode>(p, base, 0, len, s_res, c, emit_f, cnt);
+      for (int q = tid; q < Q; q += kTileThreads)
+        carry_through(s_walk[q], base, q, c, nc, Q);
+      cb ^= 1;
+    } else {
+      // The grid path, range by range from the right.
+      for (int x1 = len; x1 > 0;) {
+        const int xa = (x1 - 1) / HB * HB;
+        const int* cc = s_vec + cb * 3 * Q;
+        int* ncc = s_vec + (cb ^ 1) * 3 * Q;
+        grid_pieces(g, xa, x1, lim);
+        const uint32_t* X =
+            grid_suffixes(g, (x1 - xa + kPiece - 1) / kPiece);
+        grid_bounds(g, xa, x1, lim, X, s_res, start_at);
+        __syncthreads();
+        emit_range<kMode>(p, base, xa, x1, s_res, cc, emit_f, cnt);
+        for (int q = tid; q < Q; q += kTileThreads)
+          carry_through(compose(g.Sp[q], X), base, q, cc, ncc, Q);
+        __syncthreads();                  // the carry and Sp, X are read
+        cb ^= 1;
+        x1 = xa;
       }
     }
+    buf ^= 1;
   }
+  cp_async_wait_all();
 
-  if (kMode == kSummary) {
-    int* out = p.seg_sum + (size_t)seg * 3 * Q;
-    for (int q = tid; q < Q; q += kThreads) {
-      out[q] = cf[q];
-      out[Q + q] = cm[q];
-      out[2 * Q + q] = ci[q];
-    }
+  for (int o = 16; o > 0; o >>= 1) {
+    cnt += __shfl_down_sync(kFull, cnt, o);
+    skipped += __shfl_down_sync(kFull, skipped, o);
   }
-  if (kMode == kCount) {
-    for (int o = 16; o > 0; o >>= 1) cnt += __shfl_down_sync(0xffffffffu, cnt, o);
-    if ((tid & 31) == 0) s_red[tid >> 5] = cnt;
-    __syncthreads();
-    if (tid == 0) {
-      int total = 0;
-      for (int w = 0; w < kThreads / 32; ++w) total += s_red[w];
-      if (total) atomicAdd(p.counts, total);
-    }
-  }
-  if (tid == 0 && skipped) atomicAdd(p.counts + 1, skipped);
-}
-
-// One block: X_j = S_{j+1} o ... o S_{nseg-1} o seed for every segment j
-// (a doubling scan through two device buffers, ending in X), and
-// G = S_0 o X_0. Layout (j, r, q): r = 0 f, 1 m, 2 i.
-__global__ void __launch_bounds__(kCarryThreads) schain_carry_kernel(
-    const int* __restrict__ seg_sum, const int* __restrict__ seed, int* X,
-    int* Y, int* G, int Q, int nseg) {
-  const int tid = threadIdx.x;
-  const int NQ = nseg * Q;
-  int levels = 0;
-  for (int d = 1; d < nseg; d *= 2) ++levels;
-  int* A = (levels & 1) ? Y : X;
-  int* B = (levels & 1) ? X : Y;
-  for (int w = tid; w < NQ; w += kCarryThreads) {
-    const int j = w / Q;
-    const int q = w - j * Q;
-    const int* src = j + 1 < nseg ? seg_sum + (size_t)(j + 1) * 3 * Q : seed;
-    int* dst = A + (size_t)j * 3 * Q;
-    dst[q] = src[q];
-    dst[Q + q] = src[Q + q];
-    dst[2 * Q + q] = src[2 * Q + q];
+  if (lane == 0) {
+    s_red[0][warp] = cnt;
+    s_red[1][warp] = skipped;
   }
   __syncthreads();
-  for (int d = 1; d < nseg; d *= 2) {
-    for (int w = tid; w < NQ; w += kCarryThreads) {
-      const int j = w / Q;
-      const int q = w - j * Q;
-      const int* a = A + (size_t)j * 3 * Q;
-      int f = a[q], m = a[Q + q], i = a[2 * Q + q];
-      if (j + d < nseg) {
-        const int* b = A + (size_t)(j + d) * 3 * Q;
-        if (b[Q + f] >= 0) {
-          m = b[Q + f];
-          i = b[2 * Q + f];
-        }
-        f = b[f];
-      }
-      int* o = B + (size_t)j * 3 * Q;
-      o[q] = f;
-      o[Q + q] = m;
-      o[2 * Q + q] = i;
+  if (tid == 0) {
+    int total = 0, sk = 0;
+    for (int w = 0; w < kTileWarps; ++w) {
+      total += s_red[0][w];
+      sk += s_red[1][w];
     }
-    __syncthreads();
-    int* T = A;
-    A = B;
-    B = T;
+    if (kMode == kCount && total) atomicAdd(p.counts, total);
+    if (sk) atomicAdd(p.counts + 1, sk);
   }
-  for (int q = tid; q < Q; q += kCarryThreads) {
-    const int f0 = seg_sum[q];
-    const int mg = A[Q + f0];
-    G[q] = A[f0];
-    G[Q + q] = mg >= 0 ? mg : seg_sum[Q + q];
-    G[2 * Q + q] = mg >= 0 ? A[2 * Q + f0] : seg_sum[2 * Q + q];
+}
+
+// A barrier of the `count` threads of group `id` (named barrier id + 1;
+// barrier 0 is __syncthreads').
+__device__ __forceinline__ void group_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id + 1), "r"(count) : "memory");
+}
+
+// The carry pass of the tile instance, one block of `groups` groups of W threads (W the power of two >= Q and >=
+// 64, at most kCarryGroups groups, each with a named barrier of its own):
+// X_j = S_{j+1} o ... o S_{nseg-1} o seed for every segment j, and
+// G = S_0 o X_0 (layout (j, r, q): r = 0 f, 1 m, 2 i). A group holds a
+// state vector in shared memory, one state a thread: each group composes
+// its run of segments right to left into an aggregate; group 0 composes
+// the aggregates from the seed into each run's carry and G; each group
+// walks its run again from its carry and writes X_j. Two chains of
+// nseg / groups steps and one of `groups`, each step a shared-memory
+// lookup between two group barriers; the summaries of the next
+// kCarryAhead segments are loaded while the current ones are composed.
+__global__ void __launch_bounds__(kCarryThreads) tile_carry_kernel(
+    const int* __restrict__ seg_sum, const int* __restrict__ seed,
+    int* __restrict__ seg_x, int* __restrict__ G, int Q, int W, int nseg) {
+  __shared__ int s_v[3][kCarryThreads];   // each group's vector
+  __shared__ int s_a[3][kCarryThreads];   // the groups' aggregates
+  __shared__ int s_c[3][kCarryThreads];   // the groups' carries
+  const int tid = threadIdx.x, g = tid / W, q = tid - g * W;
+  const int groups = blockDim.x / W;
+  const int run = (nseg + groups - 1) / groups;
+  const int lo = min(g * run, nseg), hi = min(lo + run, nseg);
+  const bool real = q < Q;
+  int* v0 = s_v[0] + g * W;
+  int* v1 = s_v[1] + g * W;
+  int* v2 = s_v[2] + g * W;
+  // S_j at q (the identity past Q and outside the run).
+  auto load = [&](int j, int& f, int& m, int& i) {
+    f = q;
+    m = i = -1;
+    if (real && j >= lo && j < hi) {
+      const int* x = seg_sum + (size_t)j * 3 * Q;
+      f = __ldg(x + q);
+      m = __ldg(x + Q + q);
+      i = __ldg(x + 2 * Q + q);
+    }
+  };
+  // The group's vector V becomes S o V.
+  auto step = [&](int sf, int sm, int si) {
+    const int nf = v0[sf], nm = v1[sf], ni = v2[sf];
+    group_sync(g, W);
+    v0[q] = nf;
+    v1[q] = nm >= 0 ? nm : sm;
+    v2[q] = nm >= 0 ? ni : si;
+    group_sync(g, W);
+  };
+  // Segments hi-1 down to lo, kCarryAhead at a time (writing each X_j
+  // before composing S_j, with `write`).
+  auto walk_run = [&](bool write) {
+    int f[kCarryAhead], m[kCarryAhead], i[kCarryAhead];
+#pragma unroll
+    for (int u = 0; u < kCarryAhead; ++u) load(hi - 1 - u, f[u], m[u], i[u]);
+    for (int j0 = hi - 1; j0 >= lo; j0 -= kCarryAhead) {
+      int nf[kCarryAhead], nm[kCarryAhead], ni[kCarryAhead];
+#pragma unroll
+      for (int u = 0; u < kCarryAhead; ++u)
+        load(j0 - kCarryAhead - u, nf[u], nm[u], ni[u]);
+#pragma unroll
+      for (int u = 0; u < kCarryAhead; ++u) {
+        const int j = j0 - u;
+        if (j >= lo) {                    // uniform in the group
+          if (write && real) {
+            int* x = seg_x + (size_t)j * 3 * Q;
+            x[q] = v0[q];
+            x[Q + q] = v1[q];
+            x[2 * Q + q] = v2[q];
+          }
+          step(f[u], m[u], i[u]);
+        }
+        f[u] = nf[u];
+        m[u] = nm[u];
+        i[u] = ni[u];
+      }
+    }
+  };
+  v0[q] = q;
+  v1[q] = v2[q] = -1;
+  group_sync(g, W);
+  walk_run(false);
+  s_a[0][tid] = v0[q];
+  s_a[1][tid] = v1[q];
+  s_a[2][tid] = v2[q];
+  __syncthreads();
+  if (g == 0) {
+    // Group 0's vector becomes the seed, then moves left past each run.
+    v0[q] = real ? seed[q] : q;
+    v1[q] = real ? seed[Q + q] : -1;
+    v2[q] = real ? seed[2 * Q + q] : -1;
+    group_sync(0, W);
+    for (int k = groups - 1; k >= 0; --k) {
+      s_c[0][k * W + q] = v0[q];
+      s_c[1][k * W + q] = v1[q];
+      s_c[2][k * W + q] = v2[q];
+      step(s_a[0][k * W + q], s_a[1][k * W + q], s_a[2][k * W + q]);
+    }
+    if (real) {
+      G[q] = v0[q];
+      G[Q + q] = v1[q];
+      G[2 * Q + q] = v2[q];
+    }
   }
+  __syncthreads();
+  v0[q] = s_c[0][tid];
+  v1[q] = s_c[1][tid];
+  v2[q] = s_c[2][tid];
+  group_sync(g, W);
+  walk_run(true);
+}
+
+template <class Kernel>
+cudaError_t tile_prepare(Kernel kernel, size_t bytes) {
+  if (bytes > kSmemLimit) return cudaErrorInvalidValue;
+  if (bytes > kSmemDefault)
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  return cudaSuccess;
 }
 
 template <int kMode>
-cudaError_t launch_tiles(const Params& p, int nseg, cudaStream_t s) {
-  const size_t bytes =
-      tile_smem_words(kMode, p.Q, p.C, p.K, p.NB, p.F != nullptr) *
-      sizeof(int);
-  if (bytes > kSmemLimit) return cudaErrorInvalidValue;
-  if (bytes > kSmemDefault) {
-    cudaError_t err = cudaFuncSetAttribute(
-        schain_tile_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return err;
-  }
-  schain_tile_kernel<kMode><<<nseg, kThreads, bytes, s>>>(p);
+cudaError_t launch_tile_emit(const TileParams& p, int nseg, cudaStream_t s) {
+  const size_t bytes = tile_layout(true, p.Q, p.C, p.NB).total;
+  cudaError_t err = tile_prepare(tile_emit_kernel<kMode>, bytes);
+  if (err != cudaSuccess) return err;
+  tile_emit_kernel<kMode><<<nseg, kTileThreads, bytes, s>>>(p);
   return cudaGetLastError();
+}
+
+// Blocks of a tile kernel an SM holds at once, or -1 on an error.
+template <class Kernel>
+int tile_blocks_per_sm(Kernel kernel, size_t bytes) {
+  int b = 0;
+  if (tile_prepare(kernel, bytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kernel, kTileThreads,
+                                                    bytes) != cudaSuccess)
+    return -1;
+  return b;
 }
 
 // ---------------------------------------------------------------------------
@@ -524,7 +1041,6 @@ cudaError_t launch_tiles(const Params& p, int nseg, cudaStream_t s) {
 constexpr int kSweepThreads = 256;      // threads of a sweep block
 constexpr int kSweepTile = 128;         // bytes of a skip tile; chunks are whole tiles
 constexpr int kSweepMaxQ = 32;
-constexpr int kMaxSegments = 1024;
 
 struct SweepParams {
   const uint8_t* text;   // (P,) padded text, 16-byte aligned
@@ -543,7 +1059,6 @@ struct SweepParams {
   int ntiles, tiles_per_chunk;
 };
 
-constexpr unsigned kFull = 0xffffffffu;
 
 // s_T[b * 32 + s] = T[b, s % W]: 32 / W copies of each byte's row.
 __device__ __forceinline__ void stage_table(uint32_t* s_T, const uint32_t* T,
@@ -1025,54 +1540,86 @@ int emit_blocks_per_sm() {
   return b;
 }
 
+
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes a tile block of this geometry needs in `mode`
-// (0 summary, 1 L, 2 L and I, 3 count; emit_f: F staged too); above
-// 232448 the launch refuses.
-size_t schain_fused_smem_bytes(int mode, int Q, int C, int K, int NB,
-                               int emit_f) {
-  return tile_smem_words(mode, Q, C, K, NB, emit_f != 0) * sizeof(int);
+// CUDA blocks of the tile instance that fit the current card at once in
+// `mode` (pass 1 and pass 3 together), or -1 on an error.
+int schain_tile_max_blocks(int mode, int Q, int C, int NB) {
+  int dev = 0, sms = 0;
+  if (Q <= 0 || Q > 256 || C <= 0 || NB <= 0 || mode < kEmitL ||
+      mode > kCount || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return -1;
+  const int b1 = tile_blocks_per_sm(tile_summary_kernel,
+                                    tile_layout(false, Q, C, NB).total);
+  const size_t e = tile_layout(true, Q, C, NB).total;
+  const int b3 =
+      mode == kEmitL    ? tile_blocks_per_sm(tile_emit_kernel<kEmitL>, e)
+      : mode == kEmitLI ? tile_blocks_per_sm(tile_emit_kernel<kEmitLI>, e)
+                        : tile_blocks_per_sm(tile_emit_kernel<kCount>, e);
+  if (b1 < 0 || b3 < 0) return -1;
+  return sms * (b1 < b3 ? b1 : b3);
 }
 
 // One fused match by the tile instance: pass 1, the carry pass, and pass 3
-// in `mode` (1 L, 2 L and I, 3 count), on `stream`. seg_sum, seg_x and
-// seg_y hold nseg*3*Q ints, L and I P+1 ints, F (emit_f: each boundary's
-// end state; null for none, and in count mode) P+1 bytes, counts 2 ints
-// zeroed by the caller; G gets 3*Q ints. start0 is boundary 0's start
-// state. Returns cudaGetLastError() after the last launch (0 = launched),
-// or the first launch's error, or cudaErrorInvalidValue for a geometry the
-// kernels do not take.
+// in `mode` (1 L, 2 L and I, 3 count), on `stream`. The text's 4096-byte
+// tiles go tiles_per_seg to a segment: nseg segments, whose count the
+// caller passes as a check. The grid path takes ranges of NB pieces (a
+// power of two) of kPiece bytes, NB * kPiece dividing a tile.
+// seg_sum and seg_x hold nseg*3*Q ints, L and I P+1 ints, F (emit_f: each
+// boundary's end state; null for none, and in count mode) P+1 bytes, each
+// 16-byte aligned, as the text; counts 2 ints zeroed by the caller; hint
+// one byte a tile (scratch); G gets 3*Q ints. start0 is boundary 0's start
+// state; dead the tables' dead state or -1 (the skip needs one). Returns
+// cudaGetLastError() after the last launch (0 = launched), or the first
+// launch's error, or cudaErrorInvalidValue for arguments the kernels do not
+// take.
 int schain_fused_tile(const uint8_t* text, const int* tab, const int* class_of,
                       const int* start_of, const int* flags, const int* seed,
-                      int* seg_sum, int* seg_x, int* seg_y, int* L, int* I,
-                      uint8_t* F, int* G, int* counts, int Q, int C, int K,
-                      int NB, int P, int n, int start0, int dead, int skip,
-                      int tiles_per_seg, int mode, void* stream) {
-  if (Q <= 0 || Q > kThreads || C <= 0 || K <= 0 || NB <= 0 ||
-      (NB & (NB - 1)) || P <= 0 || P % K || n < 0 || n > P ||
-      tiles_per_seg <= 0 || mode < kEmitL || mode > kCount ||
-      (skip && (dead < 0 || dead >= Q)) || start0 < 0 || start0 >= Q ||
-      (F && mode == kCount))
+                      int* seg_sum, int* seg_x, int* L, int* I, uint8_t* F,
+                      int* G, int* counts, uint8_t* hint, int Q, int C,
+                      int NB, int P, int n, int start0, int dead,
+                      int skip, int tiles_per_seg, int nseg, int mode,
+                      void* stream) {
+  if (Q <= 0 || Q > 256 || C <= 0 || C > 256 || NB <= 0 || (NB & (NB - 1)) ||
+      NB * kPiece > kTB || P <= 0 || n < 0 ||
+      n > P || tiles_per_seg <= 0 ||
+      mode < kEmitL || mode > kCount || dead < -1 || dead >= Q ||
+      (skip && dead < 0) || start0 < 0 || start0 >= Q ||
+      (F && mode == kCount) || !hint || ((uintptr_t)text & 15) ||
+      (mode != kCount && ((uintptr_t)L & 15)) ||
+      (mode == kEmitLI && ((uintptr_t)I & 15)) || ((uintptr_t)F & 15))
     return (int)cudaErrorInvalidValue;
-  const int nb = P / K;
-  const int ntiles = (nb + NB - 1) / NB;
-  const int nseg = (ntiles + tiles_per_seg - 1) / tiles_per_seg;
-  Params p{text, tab, class_of, start_of, flags, seg_sum, seg_x, L, I, F,
-           counts, Q, C, K, NB, P, n, start0, skip ? dead : 0, skip, ntiles,
-           tiles_per_seg};
+  const int ntiles = (P + kTB - 1) / kTB;
+  if (nseg != (ntiles + tiles_per_seg - 1) / tiles_per_seg ||
+      nseg > kMaxSegments)
+    return (int)cudaErrorInvalidValue;
+  TileParams p{text,   tab,    class_of, start_of, flags,  seg_sum,
+               seg_x,  L,      I,        F,        counts, hint,
+               Q,      C,      NB,       P,        n,      start0,
+               dead,   skip ? 1 : 0,     ntiles,   tiles_per_seg};
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = launch_tiles<kSummary>(p, nseg, s);
+  const size_t b1 = tile_layout(false, Q, C, NB).total;
+  cudaError_t err = tile_prepare(tile_summary_kernel, b1);
   if (err != cudaSuccess) return (int)err;
-  schain_carry_kernel<<<1, kCarryThreads, 0, s>>>(seg_sum, seed, seg_x, seg_y,
-                                                  G, Q, nseg);
+  tile_summary_kernel<<<nseg, kTileThreads, b1, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (mode == kEmitL) return (int)launch_tiles<kEmitL>(p, nseg, s);
-  if (mode == kEmitLI) return (int)launch_tiles<kEmitLI>(p, nseg, s);
-  return (int)launch_tiles<kCount>(p, nseg, s);
+  int W = 64;
+  while (W < Q) W *= 2;
+  const int groups =
+      kCarryThreads / W < kCarryGroups ? kCarryThreads / W : kCarryGroups;
+  tile_carry_kernel<<<1, groups * W, 0, s>>>(seg_sum, seed, seg_x, G, Q, W,
+                                             nseg);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (mode == kEmitL) return (int)launch_tile_emit<kEmitL>(p, nseg, s);
+  if (mode == kEmitLI) return (int)launch_tile_emit<kEmitLI>(p, nseg, s);
+  return (int)launch_tile_emit<kCount>(p, nseg, s);
 }
 
 // CUDA blocks of the sweep instance that fit the current card at once in

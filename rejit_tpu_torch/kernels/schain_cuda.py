@@ -29,12 +29,25 @@ instances (`instance_for`):
          at its start state. The summary pass runs each state forward and
          stops once every state is dead. Byte table: `engine.schain.
          sweep_table`; geometry: `sweep_geometry`.
-  tile   Q <= 256: tiles of NB sub-blocks of K bytes, one thread per
-         (sub-block, state) for the summaries, a doubling scan in shared
-         memory, one thread per boundary to its sub-block end (`geometry`).
+  tile   Q <= 256: 4096-byte tiles whose text is copied into shared
+         memory (cp.async) while the tile before is walked. The walk path
+         follows the live threads: each boundary's thread, and each of
+         the Q states from the tile's first byte (the tile's map), runs in
+         a warp queue until it dies (the dead state) or leaves the tile,
+         and there takes the carry, the suffix right of the tile. The
+         summary pass walks the Q states left to right through its segment
+         and stops when all are dead; its carry pass composes the segments
+         in groups of >= 64 threads that hold a state vector in shared
+         memory. A tile where some thread lives past 256 steps takes the
+         grid path instead, as the earlier design did: pieces of PIECE
+         bytes in ranges of NB, (piece, state) summaries, a doubling scan,
+         each boundary run to its piece end (`geometry`); so does a tile
+         through which the summary pass saw a state live (a byte a tile,
+         `hint`), so text whose threads never die pays no failed walk.
+         Tensor cores have no role: a step is a table lookup.
 
 The fast-forward chunk skip is kept in both, per 128-byte tile (sweep) or
-NB*K-byte tile (tile). The TPU-only forms (select chains, the dominant
+4096-byte tile (tile). The TPU-only forms (select chains, the dominant
 class, the (8, CHL) tiling, the packed `f<<ms|m`, the rolled `fori_loop`
 form) are not carried over.
 
@@ -47,20 +60,24 @@ boundary's start state (with a neutral seed, the start state itself, as
 the TPU kernel writes at n). Every boundary of a skipped tile but its
 right edge is in the dead state after its first byte, so its F is the
 seed-composed f at dead. In the sweep instance V then carries f beside m
-(one more shuffle a byte), in the tile instance F is the sub-block
-suffix's f at each thread's end state. `first_start` is boundary 0's start
-state (default `start_by_ctx[0]`; a stream chunk starting at byte a > 0
-passes the start state after byte a-1).
+(one more shuffle a byte), in the tile instance F is the carry's f at each
+thread's end state at the tile (or grid range) end. `first_start` is
+boundary 0's start state (default `start_by_ctx[0]`; a stream chunk
+starting at byte a > 0 passes the start state after byte a-1).
 
 Bounds on an H100 (3.35 TB/s): per text byte the function reads 1 B and
 writes 4 B (L), 8 B (L and I) or nothing (count), 1 B more with F, and
-needs Q automaton
-steps; with one pattern at Q = 6 the L mode is bounded by bytes and the
-count mode by operations. The sweep instance takes W steps per byte in its
-emitting pass, each a shared-memory load and one shuffle (three in L+I
-mode), so the shared-memory and shuffle pipe bounds it; the tile instance
-takes 2*Q + (K+1)/2 steps per byte, each a chain of two shared-memory
-loads.
+needs Q automaton steps (composed backward over the Q states) or, walked
+forward, the live steps; with one pattern at Q = 6 the L mode is bounded
+by bytes and the count mode by operations. The sweep instance takes W
+steps per byte in its emitting pass, each a shared-memory load and one
+shuffle (three in L+I mode), so the shared-memory and shuffle pipe bounds
+it. The tile instance's
+walk path takes the live steps (on log or word text one to a few a
+boundary; each a chain of two shared-memory loads) plus a carry lookup a
+boundary and Q state walks a tile; its grid path, for text whose threads
+live long, 2*Q + 16.5 steps a byte (the instance's first design took
+every tile so, at the same count, without its dead-state stops).
 Measured times beside these bounds are in PERF.md (from chip_smoke.py).
 
 `schain_fused` checks dtype, shape, contiguity and alignment. On CPU
@@ -69,9 +86,9 @@ kernel on the current stream, or raises. It never falls back. `LAUNCHES`
 counts kernel calls (plain runs are not counted).
 
 The fused block K (`Config.fused_block`) defaults to DEFAULT_BLOCK = 32: the
-grain of the padded text; the tile instance's sub-block, where phase 3
-costs (K+1)/2 steps per byte and phase 1 Q, so K near 32 balances them at
-the small Q of typical patterns. The sweep instance does not depend on it.
+grain of the padded text (P is a multiple of it). Neither instance depends
+on it; the tile instance takes 1 <= K <= MAX_BLOCK as it did when K was its
+sub-block (`_check`).
 """
 from __future__ import annotations
 
@@ -91,10 +108,12 @@ LAUNCHES = {"schain_fused": 0}
 DEFAULT_BLOCK = 32
 MAX_Q = 256              # states: one thread per state in the carry steps
 MAX_TABLE_WORDS = 4096   # C*Q: the table always fits in shared memory
-TILE_BYTES = 2048        # at most NB*K bytes per tile
-TILE_STATES = 2048       # at most NB*Q summaries per tile in shared memory
+MAX_BLOCK = 2048         # the largest fused block K
+TILE = 4096              # bytes of a tile of the tile instance
+GRID_STATES = 1024       # at most NB*Q piece maps a grid range
+PIECE = 32               # bytes of a grid-path piece
 MAX_SEGMENTS = 1024      # CUDA blocks of a segment pass (and carry scan)
-MAX_P = (1 << 31) - 2 * TILE_BYTES   # int32 positions, tile arithmetic
+MAX_P = (1 << 31) - 2 * MAX_BLOCK    # int32 positions, tile arithmetic
 MODES = {"l": 1, "li": 2, "count": 3}
 SWEEP_MAX_Q = 32         # the sweep instance: one state per lane of a warp
 SWEEP_TILE = 128         # bytes of its skip tile; its chunks are whole tiles
@@ -116,6 +135,8 @@ def _kernels() -> ctypes.CDLL:
         lib = build.load("schain_fused")
         lib.schain_fused_tile.argtypes = [_P] * 14 + [_I] * 11 + [_P]
         lib.schain_fused_tile.restype = _I
+        lib.schain_tile_max_blocks.argtypes = [_I] * 4
+        lib.schain_tile_max_blocks.restype = _I
         lib.schain_fused_sweep.argtypes = [_P] * 11 + [_I] * 10 + [_P]
         lib.schain_fused_sweep.restype = _I
         lib.schain_sweep_max_blocks.argtypes = [_I, _I]
@@ -165,17 +186,27 @@ def sweep_geometry(Q: int, P: int,
     return W, ntiles, tpc, -(-nchunks // groups)
 
 
-def geometry(Q: int, K: int, P: int) -> Tuple[int, int, int, int]:
+def grid_nb(Q: int) -> int:
+    """NB, the pieces of PIECE bytes in a grid range of the tile instance
+    for Q states: a power of two, NB*PIECE dividing TILE, NB*Q <=
+    GRID_STATES."""
+    if not 1 <= Q <= MAX_Q:
+        raise ValueError(f"the tile instance takes 1..{MAX_Q} states, "
+                         f"not {Q}")
+    return min(TILE // PIECE, _pow2_floor(GRID_STATES // Q))
+
+
+def geometry(Q: int, P: int,
+             max_blocks: int = MAX_SEGMENTS) -> Tuple[int, int, int, int]:
     """(NB, ntiles, tiles_per_segment, nseg) of the tile instance for Q
-    states, a fused block of K bytes and a padded text of P bytes: NB
-    sub-blocks per
-    tile (a power of two, NB*K <= TILE_BYTES, NB*Q <= TILE_STATES), tiles
-    dealt in runs to at most MAX_SEGMENTS CUDA blocks."""
-    if not 1 <= K <= TILE_BYTES:
-        raise ValueError(f"fused block {K} must lie in 1..{TILE_BYTES}")
-    NB = min(64, _pow2_floor(TILE_STATES // Q), _pow2_floor(TILE_BYTES // K))
-    ntiles = -(-(P // K) // NB)
-    tps = -(-ntiles // MAX_SEGMENTS)
+    states and a padded text of P bytes: `grid_nb(Q)`, and TILE-byte tiles
+    dealt in runs to at most min(max_blocks, MAX_SEGMENTS) CUDA blocks
+    (`max_blocks`: the blocks the card holds at once, so that they run in
+    one wave)."""
+    NB = grid_nb(Q)
+    ntiles = -(-P // TILE)
+    cap = max(1, min(MAX_SEGMENTS, max_blocks))
+    tps = -(-ntiles // cap)
     return NB, ntiles, tps, -(-ntiles // tps)
 
 
@@ -213,11 +244,25 @@ def _sweep_table(static: tuple, dev: torch.device) -> torch.Tensor:
 
 
 def _boundary_buffer(P: int, dev: torch.device,
-                     dtype: torch.dtype = torch.int32) -> torch.Tensor:
-    """A tensor of P+1 boundaries whose element 1 is 16-byte aligned (the
-    sweep instance stores 16 bytes at a time from boundary 1 on)."""
-    lead = 16 // torch.empty((), dtype=dtype).element_size() - 1
+                     dtype: torch.dtype = torch.int32,
+                     first: int = 1) -> torch.Tensor:
+    """A tensor of P+1 boundaries whose element `first` is 16-byte aligned
+    (the sweep instance stores 16 bytes at a time from boundary 1 on, the
+    tile instance from boundary 0)."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    lead = (per - first) % per
     return torch.empty(P + 1 + lead, dtype=dtype, device=dev)[lead:]
+
+
+@functools.lru_cache(maxsize=64)
+def _tile_blocks(device_index: Optional[int], mode: str, Q: int, C: int,
+                 NB: int) -> int:
+    """CUDA blocks of the tile instance that the current card holds at once
+    in `mode` for these tables (call with that card current)."""
+    b = _kernels().schain_tile_max_blocks(MODES[mode], Q, C, NB)
+    if b <= 0:
+        raise RuntimeError("schain_fused: occupancy query failed")
+    return b
 
 
 @functools.lru_cache(maxsize=16)
@@ -238,7 +283,10 @@ def _sweep_blocks(device_index: Optional[int], mode: str,
 
 
 def _check(ct: DeviceTables, text: torch.Tensor, n: int, seed: torch.Tensor,
-           block: int, mode: str, emit_f: bool = False) -> None:
+           block: int, mode: str, emit_f: bool, instance: str) -> None:
+    if block < 1 or (instance == "tile" and block > MAX_BLOCK):
+        raise ValueError(f"fused block {block} out of range for the "
+                         f"{instance} instance (tile: 1..{MAX_BLOCK})")
     if text.dtype != torch.uint8 or text.dim() != 1:
         raise TypeError(f"text must be a 1-D uint8 tensor, got {text.dtype} "
                         f"of rank {text.dim()}")
@@ -368,7 +416,7 @@ def _fused(
 ):
     """schain_fused by `instance` ('sweep' takes Q <= SWEEP_MAX_Q)."""
     Q, C = ct.n_states, ct.n_classes
-    _check(ct, text, n, seed, block, mode, emit_f)
+    _check(ct, text, n, seed, block, mode, emit_f, instance)
     fs = dfa_cuda.first_start_of(ct, first_start)
     if text.device.type == "cpu":
         return schain_fused_plain(ct, text, n, seed, block=block, mode=mode,
@@ -380,15 +428,17 @@ def _fused(
     P = text.shape[0]
     fp = ct.plan
     skip = bool(use_ff and fp.skip)
+    first = 1 if instance == "sweep" else 0
     L = I = F = None
     if mode != "count":
-        L = _boundary_buffer(P, dev)
+        L = _boundary_buffer(P, dev, first=first)
     if mode == "li":
-        I = _boundary_buffer(P, dev)
+        I = _boundary_buffer(P, dev, first=first)
     if emit_f:
-        F = _boundary_buffer(P, dev, torch.uint8)
+        F = _boundary_buffer(P, dev, torch.uint8, first=first)
     G = torch.empty((3, Q), dtype=torch.int32, device=dev)
     counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    dead = -1 if fp.dead is None else fp.dead
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -402,7 +452,6 @@ def _fused(
                                device=dev)
             chunk_x = torch.empty((nseg, 3, SWEEP_THREADS),
                                   dtype=torch.int32, device=dev)
-            dead = -1 if fp.dead is None else fp.dead
             err = lib.schain_fused_sweep(
                 text.data_ptr(), _sweep_table(ct.static, dev).data_ptr(),
                 seed.data_ptr(), segs[0].data_ptr(), segs[1].data_ptr(),
@@ -411,17 +460,18 @@ def _fused(
                 fs, dead, int(skip), tpc, nseg, MODES[mode], stream,
             )
         else:
-            NB, ntiles, tps, nseg = geometry(Q, block, P)
-            segs = torch.empty((3, nseg, 3, Q), dtype=torch.int32,
+            NB, ntiles, tps, nseg = geometry(
+                Q, P, _tile_blocks(dev.index, mode, Q, C, grid_nb(Q)))
+            segs = torch.empty((2, nseg, 3, Q), dtype=torch.int32,
                                device=dev)
+            hint = torch.empty(ntiles, dtype=torch.uint8, device=dev)
             err = lib.schain_fused_tile(
                 text.data_ptr(), ct.packed.data_ptr(), ct.class_of.data_ptr(),
                 ct.start_of_byte.data_ptr(), ct.byte_flags.data_ptr(),
                 seed.data_ptr(), segs[0].data_ptr(), segs[1].data_ptr(),
-                segs[2].data_ptr(), ptr(L), ptr(I), ptr(F), G.data_ptr(),
-                counts.data_ptr(), Q, C, block, NB, P, int(n),
-                fs, fp.dead if skip else -1, int(skip), tps,
-                MODES[mode], stream,
+                ptr(L), ptr(I), ptr(F), G.data_ptr(),
+                counts.data_ptr(), hint.data_ptr(), Q, C, NB, P,
+                int(n), fs, dead, int(skip), tps, nseg, MODES[mode], stream,
             )
     if err:
         msg = lib.schain_error_string(err).decode()

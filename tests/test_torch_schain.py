@@ -197,16 +197,16 @@ def test_skip_plan_for_sparse_patterns():
 
 
 def test_geometry():
-    for Q, K_, P_ in ((6, 32, 10_000_000), (256, 32, 1 << 20), (2, 2048, 4096),
-                      (6, 32, 32)):
-        NB, ntiles, tps, nseg = schain_cuda.geometry(Q, K_, P_)
-        assert NB & (NB - 1) == 0 and NB * Q <= schain_cuda.TILE_STATES
-        assert NB * K_ <= schain_cuda.TILE_BYTES
-        assert ntiles * NB * K_ >= P_ > (ntiles - 1) * NB * K_
+    for Q, P_ in ((6, 10_000_000), (256, 1 << 20), (2, 4096), (6, 32)):
+        NB, ntiles, tps, nseg = schain_cuda.geometry(Q, P_)
+        assert NB & (NB - 1) == 0 and NB * Q <= schain_cuda.GRID_STATES
+        assert schain_cuda.TILE % (NB * schain_cuda.PIECE) == 0
+        T = schain_cuda.TILE
+        assert ntiles * T >= P_ > (ntiles - 1) * T
         assert nseg <= schain_cuda.MAX_SEGMENTS
         assert (nseg - 1) * tps < ntiles <= nseg * tps
     with pytest.raises(ValueError):
-        schain_cuda.geometry(6, 4096, 4096)
+        schain_cuda.geometry(0, 4096)
 
 
 # ---------------------------------------------------------------------------
