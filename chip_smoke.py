@@ -5,7 +5,7 @@ Run from the repository root, on a machine with an NVIDIA card and nvcc:
 
     python3 chip_smoke.py            # everything (what the chip check runs)
     python3 chip_smoke.py --quick    # build, checks and main paths; no timing
-    python3 chip_smoke.py --times b1|scan|tile [--port-root DIR]
+    python3 chip_smoke.py --times b1|scan|tile|count [--port-root DIR]
         # one kernel's rows only, for the port in DIR (default: this
         # checkout), for a before column: b1, the split route's
         # dfa_phase1/dfa_phase3 (DIR may hold an older checkout whose
@@ -16,7 +16,9 @@ Run from the repository root, on a machine with an NVIDIA card and nvcc:
         # count modes on the four log-search workloads, the line-long
         # case, config 3's tables and the two no-die cases (Q = 3 and 42)
         # at 10 MB and 256 MiB, on the log text of this script's own
-        # checkout
+        # checkout; count, match_all_count of the benchmark cells'
+        # patterns at 10 MB and 256 MiB staged, its wall with torch's
+        # profiler off and recording, and its device_time_s
 
 It builds the port's CUDA kernels from the sources in the checkout (one nvcc
 per source, all started together), then:
@@ -212,6 +214,12 @@ per source, all started together), then:
    2 MiB chunk, the matmul engine's device time by kernel at 10 MB, and
    scan1d at 10 M and 256 Mi (torch.profiler; scan1d must show one kernel
    a call, also under --quick).
+
+A `device_time_s` here is `last_stats.device_time_s`: the time between
+two CUDA events around the engine's kernels (from its first kernel, after
+the text's upload, to its last, before the call's host read; summed over
+chunks on the stream calls), so no dispatch, upload or sync
+(utils/stats.py:MatchStats).
 
 Every result is a JSON line; the `{"kernels": [...]}` line and the card's
 nvidia-smi line come just before the last line, which is
@@ -829,6 +837,53 @@ def tile_times(rt, reps: int) -> None:
         r = reps if size < (1 << 26) else max(2, reps // 4)
         emit({"phase": "times_tile", "card": card, **time_tile_row(
             rt, name, size, pat, mode, text, r)})
+
+
+# The benchmark cells' patterns (portbench/configs), for --times count.
+COUNT_PATTERNS = {"tokenizer": [r"\w+", r"\s+", r"[^\w\s]+"],
+                  "class": "[a-z]+", "literals": "foo|bar|baz"}
+COUNT_SIZES = (10_000_000, 1 << 28)
+
+
+def count_times(rt, reps: int) -> None:
+    """--times count: match_all_count of the benchmark cells' patterns on
+    a staged make_corpus text (needle `foo` at 0.001) of 10 MB and 256
+    MiB, for the imported port (DIR may hold an older checkout): each
+    call's host wall until its count is on the host, with torch's
+    profiler off and then recording (CPU and CUDA activity), and
+    last_stats.device_time_s; medians of `reps` calls after a warm one,
+    one line a pattern and size."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rejit_tpu_torch.utils.corpus import make_corpus
+
+    card = nvidia_smi("name,power.limit")
+    for n in COUNT_SIZES:
+        corpus = rt.stage(make_corpus(n, seed=3, needle=b"foo",
+                                      density=0.001), "cuda")
+        r = reps if n < (1 << 26) else max(5, reps // 2)
+        for name, pat in COUNT_PATTERNS.items():
+            p = rt.Pattern(pat, device="cuda")
+            want = p.match_all_count(corpus)
+            off, dev = [], []
+            for _ in range(r):
+                t0 = time.perf_counter()
+                check(p.match_all_count(corpus) == want, "count changed")
+                off.append(time.perf_counter() - t0)
+                dev.append(p.last_stats.device_time_s)
+            on = []
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]):
+                for _ in range(r):
+                    t0 = time.perf_counter()
+                    p.match_all_count(corpus)
+                    on.append(time.perf_counter() - t0)
+            emit({"phase": "times_count", "card": card, "pattern": name,
+                  "n": n, "calls": r, "count": want,
+                  "wall_ms": 1e3 * float(np.median(off)),
+                  "wall_ms_profiled": 1e3 * float(np.median(on)),
+                  "device_time_ms": 1e3 * float(np.median(dev))})
+        del corpus
 
 
 def tile_work(ct, t: torch.Tensor, n: int) -> dict:
@@ -3210,7 +3265,8 @@ def main() -> int:
           "ptxas": {k: v["ptxas"] for k, v in built.items()},
           "port": rt.__file__})
     if "--times" in args:
-        {"b1": b1_times, "scan": scan_times, "tile": tile_times}[
+        {"b1": b1_times, "scan": scan_times, "tile": tile_times,
+         "count": count_times}[
             args[args.index("--times") + 1]](rt, reps=20)
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",

@@ -104,7 +104,7 @@ from .errors import CompileError, StateBlowupError
 from .kernels import classlit, classrun, extract_cuda, literal, schain_cuda
 from .native import lib as native_lib
 from .oracle import OraclePattern
-from .utils.stats import MatchStats, Timer
+from .utils.stats import DeviceClock, MatchStats, span, traced
 
 Span = Tuple[int, int]
 TextLike = Union[str, bytes, bytearray, np.ndarray, "DeviceCorpus"]
@@ -153,6 +153,7 @@ def _pad_len(n: int, grain: int, tail: int = 0) -> int:
     return max(1, -(-(n + tail) // grain)) * grain
 
 
+@traced("upload")
 def _upload_padded(host: np.ndarray, P: int,
                    device: torch.device) -> torch.Tensor:
     """The text zero-padded to P bytes, on `device`."""
@@ -178,6 +179,7 @@ class DeviceCorpus:
         self.uploads = 0      # host -> device copies made
         self._padded = {}     # P -> padded uint8 device text
 
+    @traced("upload")
     def _padded_to(self, P: int, fits) -> torch.Tensor:
         """A cached padded text whose length `fits`, else one of P bytes."""
         for Pc, t in self._padded.items():
@@ -339,7 +341,9 @@ class Pattern:
         self._oracle = None
         self._posnfa = None
         self._cts = {}        # device -> DeviceTables of mesh= calls
-        self.last_stats: MatchStats = MatchStats()
+        self._stats = MatchStats()
+        self._stats_unread = False   # device time still on the clock
+        self._clock = DeviceClock(self.device)
         if self.engine in ("classrun", "classlit"):
             kernel = classrun if self.engine == "classrun" else classlit
             bitmap, *shape = kernel.detect(self.irs[0])
@@ -578,10 +582,13 @@ class Pattern:
 
     def _l_i_device(self, text: np.ndarray, corpus=None):
         """(L, I) tensors on the pattern's device, length P+1 (-1 past n).
-        I is None on the fused route with one pattern (every pid is 0)."""
+        I is None on the fused route with one pattern (every pid is 0).
+        Starts the device clock's part once the text is on the device;
+        the caller stops it."""
         n = len(text)
         if self.engine in ("classrun", "classlit"):
             dev_text = self._padded_text(text, corpus, ELEM_GRAIN)
+            self._clock.start()
             common = dict(use_kernel=self._use_kernels(),
                           class_runs=self._class_runs,
                           word_runs=self._word_runs)
@@ -600,27 +607,33 @@ class Pattern:
             # The host bytes, padded to a bucketed number of blocks.
             K = self._posnfa_block()
             P = _bucket_blocks(max(1, -(-n // K))) * K
-            return nfaset.l_arrays_device_nfaset(
-                self._posnfa, _upload_padded(text, P, self.device), n,
-                block=K)
+            dev_text = _upload_padded(text, P, self.device)
+            self._clock.start()
+            return nfaset.l_arrays_device_nfaset(self._posnfa, dev_text, n,
+                                                 block=K)
         if self.engine == "literal":
             ext, P = self._literal_ext(text, corpus)
+            self._clock.start()
             return literal.literal_l_arrays_device(
                 ext, n, lits=self.info.literals,
                 pids=self.info.literal_pids, P=P,
             )
         if self.fused:
+            dev_text = self._padded_text(text, corpus, self.fused_block)
+            self._clock.start()
             return schain_cuda.l_arrays_device_staged(
-                self.ct, self._padded_text(text, corpus, self.fused_block), n,
-                block=self.fused_block, use_ff=self.config.use_ff,
+                self.ct, dev_text, n, block=self.fused_block,
+                use_ff=self.config.use_ff,
             )
         K = self.config.block_size
         # schain='on' (the JAX package's select chain) takes the split
         # route before the matmul engine, as its engine does there.
-        if self.config.schain != "on" and self._use_matmul():
-            return matmul.l_arrays_device_matmul(
-                self.ct, self._padded_text(text, corpus, K), n, block=K)
+        use_matmul = self.config.schain != "on" and self._use_matmul()
         dev_text = self._padded_text(text, corpus, K)
+        self._clock.start()
+        if use_matmul:
+            return matmul.l_arrays_device_matmul(self.ct, dev_text, n,
+                                                 block=K)
         if self.config.use_ff:
             return pipeline.l_arrays_device_ff(
                 self.ct, dev_text, n, block=K, force=self.config.force_ff
@@ -651,15 +664,37 @@ class Pattern:
             )
 
     def _start_mask(self, text: np.ndarray, corpus) -> torch.Tensor:
-        """The bitmask route's (P,) candidate-start mask."""
+        """The bitmask route's (P,) candidate-start mask (the device
+        clock's part started once the text is on the device)."""
         ext, P = self._literal_ext(text, corpus)
+        self._clock.start()
         return literal.literal_start_mask_device(
             ext, len(text), lits=self.info.literals, P=P
         )
 
-    def _record(self, op, n_bytes, n_matches, t_dev, t_all, n_cand=0,
-                t_sel=0.0):
-        self.last_stats = MatchStats(
+    @property
+    def last_stats(self) -> MatchStats:
+        """The MatchStats of the last call. Its device time is read from
+        the device clock here, on first access, after the call's own host
+        read: the call itself waits for nothing more."""
+        if self._stats_unread:
+            self._stats_unread = False
+            self._stats.device_time_s += self._clock.take()
+        return self._stats
+
+    def _op(self, op: str) -> span:
+        """The root span of a public op: a new MatchStats for it, the
+        device clock reset."""
+        self._stats = MatchStats(engine=self.engine, op=op)
+        self._stats_unread = False
+        self._clock.reset()
+        return span(op)
+
+    def _record(self, op, n_bytes, n_matches, t_all, n_cand=0, t_sel=0.0,
+                t_dev=0.0):
+        """last_stats of the call: `t_dev` plus the device clock's parts
+        (read when last_stats is)."""
+        self._stats = MatchStats(
             engine=self.engine,
             op=op,
             n_bytes=n_bytes,
@@ -669,6 +704,7 @@ class Pattern:
             select_time_s=t_sel,
             total_time_s=t_all,
         )
+        self._stats_unread = True
 
     @staticmethod
     def _widths_at(t: np.ndarray, sp: np.ndarray, lits, order):
@@ -692,6 +728,7 @@ class Pattern:
             which[hit] = i
         return widths, which
 
+    @traced("decode")
     def _decode_ends_pids(self, t: np.ndarray, sp: np.ndarray):
         """(starts, ends, pids) from the candidate starts of an OVERLAP-FREE
         literal set: every start is a match start; its width and pattern id
@@ -757,93 +794,93 @@ class Pattern:
     def match_full(self, text: TextLike) -> bool:
         t, corpus = _unwrap(text)
         if self._oracle:
-            with Timer() as t_all:
+            with self._op("match_full") as t_all:
                 got = self._oracle.match_full(self._oracle_bytes(t))
-            self._record("match_full", len(t), int(got), 0.0, t_all.elapsed)
+            self._record("match_full", len(t), int(got), t_all.elapsed)
             return got
-        with Timer() as t_all:
-            with Timer() as t_dev:
-                L, _ = self._l_i_device(t, corpus)
-                got = int(L[0]) == len(t)
-        self._record("match_full", len(t), int(got), t_dev.elapsed,
-                     t_all.elapsed)
+        with self._op("match_full") as t_all:
+            L, _ = self._l_i_device(t, corpus)
+            self._clock.stop()
+            got = int(L[0]) == len(t)
+        self._record("match_full", len(t), int(got), t_all.elapsed)
         return got
 
     def match_anywhere(self, text: TextLike) -> bool:
         t, corpus = _unwrap(text)
         if self._oracle:
-            with Timer() as t_all:
+            with self._op("match_anywhere") as t_all:
                 got = self._oracle.match_anywhere(self._oracle_bytes(t))
-            self._record("match_anywhere", len(t), int(got), 0.0,
-                         t_all.elapsed)
+            self._record("match_anywhere", len(t), int(got), t_all.elapsed)
             return got
         if self.engine == "dfa" and len(t) > self.config.first_window:
             # Early exit: the doubling-window ladder (engine/stream.py).
-            with Timer() as t_all:
+            with self._op("match_anywhere") as t_all:
                 got = self.match_anywhere_stream(
                     t, chunk_bytes=self.config.first_window, corpus=corpus)
-            self._record("match_anywhere", len(t), int(got), 0.0,
-                         t_all.elapsed)
+            self._record_after("match_anywhere", len(t), int(got),
+                               t_all.elapsed)
             return got
         if self._bitmask_ok():
-            with Timer() as t_all:
-                with Timer() as t_dev:
-                    mask = self._start_mask(t, corpus)
-                    found = spans.first_candidate(mask, len(t)) < len(t)
-            self._record("match_anywhere", len(t), int(found),
-                         t_dev.elapsed, t_all.elapsed, n_cand=int(found))
+            with self._op("match_anywhere") as t_all:
+                mask = self._start_mask(t, corpus)
+                self._clock.stop()
+                found = spans.first_candidate(mask, len(t)) < len(t)
+            self._record("match_anywhere", len(t), int(found), t_all.elapsed,
+                         n_cand=int(found))
             return found
-        with Timer() as t_all:
-            with Timer() as t_dev:
-                L, _ = self._l_i_device(t, corpus)
-                c = int(spans.candidate_count(L))
-        self._record("match_anywhere", len(t), int(c > 0), t_dev.elapsed,
-                     t_all.elapsed, n_cand=c)
+        with self._op("match_anywhere") as t_all:
+            L, _ = self._l_i_device(t, corpus)
+            self._clock.stop()
+            c = int(spans.candidate_count(L))
+        self._record("match_anywhere", len(t), int(c > 0), t_all.elapsed,
+                     n_cand=c)
         return c > 0
 
     def match_first(self, text: TextLike, mesh=None) -> Optional[Span]:
         t, corpus = _unwrap(text)
         m_ = self._resolve_mesh(mesh)
         if m_ is not None:
-            s, e, _ = self._sharded_arrays(t, m_)
-            self.last_stats.op = "match_first"
+            with self._op("match_first") as t_all:
+                s, e, _ = self._sharded_arrays(t, m_)
+            self._record_after("match_first", len(t), int(len(s) > 0),
+                               t_all.elapsed)
             return (int(s[0]), int(e[0])) if len(s) else None
         if self._oracle:
-            with Timer() as t_all:
+            with self._op("match_first") as t_all:
                 m = self._oracle.match_first(self._oracle_bytes(t))
-            self._record("match_first", len(t), int(m is not None), 0.0,
+            self._record("match_first", len(t), int(m is not None),
                          t_all.elapsed)
             return m
         if self.engine == "dfa" and len(t) > self.config.first_window:
             # Early exit: work follows the distance to the first match
             # (doubling windows, engine/stream.py), not the text length. A
             # DeviceCorpus makes the fused ladder slice its device text.
-            with Timer() as t_all:
+            with self._op("match_first") as t_all:
                 m = self.match_first_stream(
                     t, chunk_bytes=self.config.first_window, corpus=corpus)
-            self._record("match_first", len(t), int(m is not None), 0.0,
-                         t_all.elapsed)
+            self._record_after("match_first", len(t), int(m is not None),
+                               t_all.elapsed)
             return m
         if self._bitmask_ok():
             # One device reduction over the start mask; the end decodes
             # from the text at the start.
-            with Timer() as t_all:
-                with Timer() as t_dev:
-                    mask = self._start_mask(t, corpus)
-                    first = spans.first_candidate(mask, len(t))
+            with self._op("match_first") as t_all:
+                mask = self._start_mask(t, corpus)
+                self._clock.stop()
+                first = spans.first_candidate(mask, len(t))
                 found = first < len(t)
-            self._record("match_first", len(t), int(found),
-                         t_dev.elapsed, t_all.elapsed, n_cand=int(found))
+            self._record("match_first", len(t), int(found), t_all.elapsed,
+                         n_cand=int(found))
             if not found:
                 return None
             _, end, _ = self._decode_ends_pids(t, np.array([first]))
             return (first, int(end[0]))
-        with Timer() as t_all:
-            with Timer() as t_dev:
-                L, I = self._l_i_device(t, corpus)
-                pos, end, _ = spans.candidates_host(L, I)
-        self._record("match_first", len(t), int(len(pos) > 0),
-                     t_dev.elapsed, t_all.elapsed, n_cand=len(pos))
+        with self._op("match_first") as t_all:
+            L, I = self._l_i_device(t, corpus)
+            self._clock.stop()
+            pos, end, _ = spans.candidates_host(L, I)
+        self._record("match_first", len(t), int(len(pos) > 0), t_all.elapsed,
+                     n_cand=len(pos))
         if len(pos) == 0:
             return None
         return (int(pos[0]), int(end[0]))
@@ -866,29 +903,29 @@ class Pattern:
                 and len(t) > self.config.posnfa_chunk_bytes):
             # The exact chunked sweep, which carries the suffix element
             # across chunks, bounds the engine's working set.
-            with Timer() as t_all:
+            with self._op("match_all") as t_all:
                 out = self.match_all_stream(
                     t, chunk_bytes=self.config.posnfa_chunk_bytes)
-            self._record("match_all", len(t), len(out[0]), t_all.elapsed,
-                         t_all.elapsed)
+            self._record_after("match_all", len(t), len(out[0]),
+                               t_all.elapsed)
             return out
         if self._oracle:
-            with Timer() as t_all:
+            with self._op("match_all") as t_all:
                 out = self._oracle_arrays(t)
-            self._record("match_all", len(t), len(out[0]), 0.0,
-                         t_all.elapsed)
+            self._record("match_all", len(t), len(out[0]), t_all.elapsed)
             return out
         if self._bitmask_ok():
             # Overlap-freedom makes every candidate start a match start, so
             # the start mask is the whole device result; widths and pattern
             # ids decode from the text bytes at each start.
-            with Timer() as t_all:
-                with Timer() as t_dev:
-                    sp = spans.mask_positions(self._start_mask(t, corpus))
-                with Timer() as t_sel:
+            with self._op("match_all") as t_all:
+                mask = self._start_mask(t, corpus)
+                self._clock.stop()
+                sp = spans.mask_positions(mask)
+                with span() as t_sel:
                     out = self._decode_ends_pids(t, sp)
-            self._record("match_all", len(t), len(sp), t_dev.elapsed,
-                         t_all.elapsed, n_cand=len(sp), t_sel=t_sel.elapsed)
+            self._record("match_all", len(t), len(sp), t_all.elapsed,
+                         n_cand=len(sp), t_sel=t_sel.elapsed)
             return out
         if self._spans_kernel_ok(corpus):
             # The literal_spans kernel: one pass over the text gives each
@@ -897,51 +934,52 @@ class Pattern:
             # with a larger cap before decoding.
             n = len(t)
             lits = self.info.literals
-            with Timer() as t_all:
-                with Timer() as t_dev:
-                    rows = torch.from_numpy(extract_cuda.pad_rows(
-                        t, n, max(len(l) for l in lits))).to(self.device)
-                    cap = 4
-                    while True:
-                        keys, cnt = extract_cuda.literal_spans(
-                            rows, n, lits=lits,
-                            pids=self.info.literal_pids, cap=cap,
-                        )
-                        mx = int(cnt.max())
-                        if mx <= cap:
-                            break
-                        while cap < mx:
-                            cap *= 2
-                    n_cand = int(cnt.sum())
-                with Timer() as t_sel:
+            with self._op("match_all") as t_all:
+                rows = torch.from_numpy(extract_cuda.pad_rows(
+                    t, n, max(len(l) for l in lits))).to(self.device)
+                cap = 4
+                while True:
+                    self._clock.start()
+                    keys, cnt = extract_cuda.literal_spans(
+                        rows, n, lits=lits, pids=self.info.literal_pids,
+                        cap=cap,
+                    )
+                    self._clock.stop()
+                    mx = int(cnt.max())
+                    if mx <= cap:
+                        break
+                    while cap < mx:
+                        cap *= 2
+                n_cand = int(cnt.sum())
+                with span() as t_sel:
                     out = extract_cuda.spans_host(keys)
-            self._record("match_all", n, len(out[0]), t_dev.elapsed,
-                         t_all.elapsed, n_cand=n_cand, t_sel=t_sel.elapsed)
+            self._record("match_all", n, len(out[0]), t_all.elapsed,
+                         n_cand=n_cand, t_sel=t_sel.elapsed)
             return out
-        with Timer() as t_all:
-            with Timer() as t_dev:
-                L, I = self._l_i_device(t, corpus)
-                n_cand = int(spans.candidate_count(L))
+        with self._op("match_all") as t_all:
+            L, I = self._l_i_device(t, corpus)
+            self._clock.stop()
+            n_cand = int(spans.candidate_count(L))
             if (self.engine in ("dfa", "classrun") and self.info.run_partition
                     and n_cand * 8 > len(t)):
                 # Dense run-partition results (tokenizers): selection is
                 # elementwise and the host receives one uint8 per position.
-                with Timer() as t_sel:
+                with span() as t_sel:
                     pid_u8 = spans.partition_pid_bytes(L, I).cpu().numpy()
                     out = spans.partition_arrays_host(pid_u8, len(t))
             elif n_cand > self.config.device_select_threshold:
                 # Selection on the device: only the selected matches move
                 # to the host.
-                with Timer() as t_sel:
+                with span() as t_sel:
                     out = select_device.match_all_device(L, I)
             else:
                 pos, end, pid = spans.candidates_host(L, I)
                 native = self._use_native()
-                with Timer() as t_sel:
+                with span() as t_sel:
                     out = select.match_all_candidates(pos, end, pid,
                                                       native=native)
-        self._record("match_all", len(t), len(out[0]), t_dev.elapsed,
-                     t_all.elapsed, n_cand=n_cand, t_sel=t_sel.elapsed)
+        self._record("match_all", len(t), len(out[0]), t_all.elapsed,
+                     n_cand=n_cand, t_sel=t_sel.elapsed)
         return out
 
     def tokenize(self, text: TextLike,
@@ -956,43 +994,48 @@ class Pattern:
         if m_ is not None:
             return self._sharded_count(t, m_)
         if self._oracle:
-            with Timer() as t_all:
+            with self._op("match_all_count") as t_all:
                 cnt = self._oracle.match_all_count(self._oracle_bytes(t))
-            self._record("match_all_count", len(t), cnt, 0.0, t_all.elapsed)
+            self._record("match_all_count", len(t), cnt, t_all.elapsed)
             return cnt
         if self.engine == "literal" and self.info.overlap_free:
             # A device reduction; no span materialization.
-            with Timer() as t_all:
+            with self._op("match_all_count") as t_all:
                 ext, P = self._literal_ext(t, corpus)
-                cnt = int(literal.literal_count_device(
-                    ext, len(t), lits=self.info.literals, P=P))
-            self._record("match_all_count", len(t), cnt, t_all.elapsed,
-                         t_all.elapsed)
+                self._clock.start()
+                dev = literal.literal_count_device(
+                    ext, len(t), lits=self.info.literals, P=P)
+                self._clock.stop()
+                cnt = int(dev)
+            self._record("match_all_count", len(t), cnt, t_all.elapsed)
             return cnt
         if self.engine in ("dfa", "classrun") and self.info.run_partition:
             # Elementwise selection makes the count a device reduction
             # over the (L, I) tensors.
-            with Timer() as t_all:
-                with Timer() as t_dev:
-                    L, I = self._l_i_device(t, corpus)
-                cnt = int(spans.partition_count(L, I))
-            self._record("match_all_count", len(t), cnt, t_dev.elapsed,
-                         t_all.elapsed)
+            with self._op("match_all_count") as t_all:
+                L, I = self._l_i_device(t, corpus)
+                dev = spans.partition_count(L, I)
+                self._clock.stop()
+                cnt = int(dev)
+            self._record("match_all_count", len(t), cnt, t_all.elapsed)
             return cnt
         if self.info.overlap_free and self.fused:
             # Overlap-free: every candidate is a match, so the count is a
             # pure device reduction and no L/I array is written.
-            with Timer() as t_all:
-                cnt = int(schain_cuda.count_device_staged(
-                    self.ct, self._padded_text(t, corpus, self.fused_block),
-                    len(t),
-                    block=self.fused_block, use_ff=self.config.use_ff,
-                ))
-            self._record("match_all_count", len(t), cnt, t_all.elapsed,
-                         t_all.elapsed)
+            with self._op("match_all_count") as t_all:
+                dev_text = self._padded_text(t, corpus, self.fused_block)
+                self._clock.start()
+                dev = schain_cuda.count_device_staged(
+                    self.ct, dev_text, len(t), block=self.fused_block,
+                    use_ff=self.config.use_ff,
+                )
+                self._clock.stop()
+                cnt = int(dev)
+            self._record("match_all_count", len(t), cnt, t_all.elapsed)
             return cnt
-        cnt = len(self.match_all_arrays(text)[0])
-        self.last_stats.op = "match_all_count"
+        with self._op("match_all_count") as t_all:
+            cnt = len(self.match_all_arrays(text)[0])
+        self._record_after("match_all_count", len(t), cnt, t_all.elapsed)
         return cnt
 
     def match_all_count_each(self, text: TextLike) -> np.ndarray:
@@ -1025,31 +1068,31 @@ class Pattern:
                     slow.append(i)
         counts = np.zeros(k, dtype=np.int64)
         n_cand = 0
-        t_dev = t_sel = 0.0
-        with Timer() as t_all:
+        t_sel = t_sub = 0.0
+        with self._op("match_all_count_each") as t_all:
             if lits:
-                with Timer() as td:
-                    ext, P = self._literal_ext(
-                        t, corpus, max(len(l) for l in lits))
-                    masks = literal.literal_start_mask_by_pid_device(
-                        ext, len(t), lits=tuple(lits), pids=tuple(pids),
-                        n_pat=k, P=P,
-                    )
-                    starts = {p: spans.mask_positions(masks[p])
-                              for p in sorted(set(pids))}
-                t_dev = td.elapsed
-                with Timer() as ts:
+                ext, P = self._literal_ext(
+                    t, corpus, max(len(l) for l in lits))
+                self._clock.start()
+                masks = literal.literal_start_mask_by_pid_device(
+                    ext, len(t), lits=tuple(lits), pids=tuple(pids),
+                    n_pat=k, P=P,
+                )
+                self._clock.stop()
+                starts = {p: spans.mask_positions(masks[p])
+                          for p in sorted(set(pids))}
+                with span() as ts:
                     for p, sp in starts.items():
                         n_cand += len(sp)
                         counts[p] = self._nonoverlap_count(
                             t, sp, [l for l, q in zip(lits, pids) if q == p])
                 t_sel = ts.elapsed
             for i in slow:
-                counts[i] = _cached(
-                    (self.source[i],), self.config, self.device
-                ).match_all_count(text)
+                sub = _cached((self.source[i],), self.config, self.device)
+                counts[i] = sub.match_all_count(text)
+                t_sub += sub.last_stats.device_time_s
         self._record("match_all_count_each", len(t), int(counts.sum()),
-                     t_dev, t_all.elapsed, n_cand=n_cand, t_sel=t_sel)
+                     t_all.elapsed, n_cand=n_cand, t_sel=t_sel, t_dev=t_sub)
         return counts
 
     # -- Sharded (multi-device, multi-process) execution --------------------
@@ -1107,14 +1150,15 @@ class Pattern:
         but posnfa and the oracle takes the DFA tables' exact cross-shard
         route (dist/sharded.py)."""
         if self.engine == "literal" and self.info.overlap_free:
-            with Timer() as t_all:
-                with Timer() as t_dev:
+            with self._op("match_all") as t_all:
+                with span() as t_dev:
                     sp = dlit.sharded_literal_spans(self.info.literals, t,
                                                     mesh)
-                with Timer() as t_sel:
+                with span() as t_sel:
                     out = self._decode_ends_pids(t, sp)
-            self._record("match_all", len(t), len(out[0]), t_dev.elapsed,
-                         t_all.elapsed, n_cand=len(sp), t_sel=t_sel.elapsed)
+            self._record("match_all", len(t), len(out[0]), t_all.elapsed,
+                         n_cand=len(sp), t_sel=t_sel.elapsed,
+                         t_dev=t_dev.elapsed)
             return out
         if self._oracle or self.engine == "posnfa":
             raise CompileError(
@@ -1122,27 +1166,29 @@ class Pattern:
                 f"the {self.engine} engine (DFA blowup). Drop mesh= or "
                 "raise Config(max_dfa_states=...)."
             )
-        with Timer() as t_all:
-            with Timer() as t_dev:
+        with self._op("match_all") as t_all:
+            with span() as t_dev:
                 pos, end, pid = dsh.sharded_candidates(
                     self._dfa_tables(), t, mesh, cts=self._mesh_tables(mesh),
                     **self._sharded_kw(mesh))
-            with Timer() as t_sel:
+            with span() as t_sel:
                 out = select.match_all_candidates(
                     pos, end, pid, native=self._use_native())
-        self._record("match_all", len(t), len(out[0]), t_dev.elapsed,
-                     t_all.elapsed, n_cand=len(pos), t_sel=t_sel.elapsed)
+        self._record("match_all", len(t), len(out[0]), t_all.elapsed,
+                     n_cand=len(pos), t_sel=t_sel.elapsed,
+                     t_dev=t_dev.elapsed)
         return out
 
     def _sharded_count(self, t: np.ndarray, mesh: Mesh) -> int:
         if self.engine == "literal" and self.info.overlap_free:
-            with Timer() as t_all:
+            with self._op("match_all_count") as t_all:
                 cnt = dlit.sharded_literal_count(self.info.literals, t, mesh)
             self._record("match_all_count", len(t), cnt, t_all.elapsed,
-                         t_all.elapsed)
+                         t_dev=t_all.elapsed)
             return cnt
-        cnt = len(self._sharded_arrays(t, mesh)[0])
-        self.last_stats.op = "match_all_count"
+        with self._op("match_all_count") as t_all:
+            cnt = len(self._sharded_arrays(t, mesh)[0])
+        self._record_after("match_all_count", len(t), cnt, t_all.elapsed)
         return cnt
 
     # -- Streaming API (corpora larger than device memory) ------------------
@@ -1169,7 +1215,8 @@ class Pattern:
         """Keywords of the split chunk engine (engine/stream.py)."""
         self._dfa_tables()
         return dict(ct=self.ct, chunk_bytes=chunk_bytes,
-                    block=self.config.block_size, engine="split")
+                    block=self.config.block_size, engine="split",
+                    clock=self._clock)
 
     def _stream_first_kw(self, chunk_bytes: int) -> dict:
         """Keywords of the chunk and window engines: the fused kernel when
@@ -1193,7 +1240,7 @@ class Pattern:
     def _posnfa_stream_kw(self, chunk_bytes: int) -> dict:
         """Keywords of the posnfa engine's chunked sweep."""
         return dict(chunk_bytes=chunk_bytes, block=self._posnfa_block(),
-                    device=self.device)
+                    device=self.device, clock=self._clock)
 
     def _posnfa_candidates(self, data, chunk_bytes: int):
         """The posnfa sweep's global candidates (pos, end, pid), chunk by
@@ -1239,9 +1286,9 @@ class Pattern:
         after chunk i of nc (engine/stream.py; on the posnfa engine
         engine/nfaset.py). Returns (starts, ends, pids) int64 arrays."""
         data = self._stream_source(source)
-        with Timer() as t_all:
+        with self._op("match_all_stream") as t_all:
             out = self._stream_all(data, chunk_bytes, state_dir, progress)
-        self._record("match_all_stream", len(data), len(out[0]), 0.0,
+        self._record("match_all_stream", len(data), len(out[0]),
                      t_all.elapsed)
         return out
 
@@ -1250,10 +1297,10 @@ class Pattern:
                                progress=None) -> int:
         """The number of match_all_stream's matches (same arguments)."""
         data = self._stream_source(source)
-        with Timer() as t_all:
+        with self._op("match_all_count_stream") as t_all:
             cnt = len(self._stream_all(data, chunk_bytes, state_dir,
                                        progress)[0])
-        self._record("match_all_count_stream", len(data), cnt, 0.0,
+        self._record("match_all_count_stream", len(data), cnt,
                      t_all.elapsed)
         return cnt
 
@@ -1268,7 +1315,7 @@ class Pattern:
         from .engine import stream
 
         data = self._stream_source(source)
-        with Timer() as t_all:
+        with self._op("match_first_stream") as t_all:
             if self._oracle:
                 m = self._oracle.match_first(self._oracle_bytes(data))
             elif self.engine == "posnfa":
@@ -1280,7 +1327,7 @@ class Pattern:
                     **self._first_kw_with_corpus(chunk_bytes, corpus),
                 )
         self._record("match_first_stream", len(data), int(m is not None),
-                     0.0, t_all.elapsed)
+                     t_all.elapsed)
         return None if m is None else (m[0], m[1])
 
     def match_anywhere_stream(
@@ -1289,7 +1336,7 @@ class Pattern:
         from .engine import stream
 
         data = self._stream_source(source)
-        with Timer() as t_all:
+        with self._op("match_anywhere_stream") as t_all:
             if self._oracle:
                 got = self._oracle.match_anywhere(self._oracle_bytes(data))
             elif self.engine == "posnfa":
@@ -1299,7 +1346,7 @@ class Pattern:
                     self._dfa_tables(), data,
                     **self._first_kw_with_corpus(chunk_bytes, corpus),
                 )
-        self._record("match_anywhere_stream", len(data), int(got), 0.0,
+        self._record("match_anywhere_stream", len(data), int(got),
                      t_all.elapsed)
         return got
 
@@ -1312,7 +1359,7 @@ class Pattern:
         from .engine import stream
 
         data = self._stream_source(source)
-        with Timer() as t_all:
+        with self._op("match_full_stream") as t_all:
             if self._oracle:
                 got = self._oracle.match_full(self._oracle_bytes(data))
             elif self.engine == "posnfa":
@@ -1323,7 +1370,7 @@ class Pattern:
                 kw.pop("engine")
                 got = stream.stream_match_full(self._dfa_tables(), data,
                                                **kw)
-        self._record("match_full_stream", len(data), int(got), 0.0,
+        self._record("match_full_stream", len(data), int(got),
                      t_all.elapsed)
         return got
 
@@ -1331,18 +1378,19 @@ class Pattern:
 
     def _record_after(self, op: str, n_bytes: int, n_matches: int,
                       t_all: float) -> None:
-        """last_stats of a Replace op: its own op, matches and wall, with
-        the device and selection split of the match call it made."""
+        """last_stats of an op that made one match call of its own (a
+        Replace op, a ladder, a fallback): its own op, matches and wall,
+        with the device and selection split of that call."""
         st = self.last_stats
-        self._record(op, n_bytes, n_matches, st.device_time_s, t_all,
-                     n_cand=st.n_candidates, t_sel=st.select_time_s)
+        self._record(op, n_bytes, n_matches, t_all, n_cand=st.n_candidates,
+                     t_sel=st.select_time_s, t_dev=st.device_time_s)
 
     def replace(self, text: TextLike, repl: Union[str, bytes]) -> bytes:
         """Replace every MatchAll span with `repl` (no group references:
         the engines have no captures, docs/SEMANTICS.md)."""
         t = text_to_u8(text)
         r = _as_bytes(repl)
-        with Timer() as t_all:
+        with self._op("replace") as t_all:
             starts, ends, _ = self.match_all_arrays(text)
             if self._use_native():
                 got = native_lib.replace_splice(t, starts, ends, r)
@@ -1361,7 +1409,7 @@ class Pattern:
         if len(rs) != len(self.irs):
             raise ValueError(
                 f"need {len(self.irs)} replacements, got {len(rs)}")
-        with Timer() as t_all:
+        with self._op("replace_each") as t_all:
             starts, ends, pids = self.match_all_arrays(text)
             if self._use_native():
                 got = native_lib.replace_splice_multi(t, starts, ends, pids,
@@ -1377,7 +1425,7 @@ class Pattern:
         """Replace the MatchFirst span, if any, with `repl`."""
         t = text_to_u8(text)
         r = _as_bytes(repl)
-        with Timer() as t_all:
+        with self._op("replace_first") as t_all:
             data = t.tobytes()
             m = self.match_first(text)
             got = data if m is None else data[:m[0]] + r + data[m[1]:]
@@ -1390,7 +1438,7 @@ class Pattern:
         captures): zero-width matches split too (re 3.7 and later), and
         `maxsplit > 0` caps the number of splits."""
         t = text_to_u8(text)
-        with Timer() as t_all:
+        with self._op("split") as t_all:
             starts, ends, _ = self.match_all_arrays(text)
             if maxsplit > 0:
                 starts, ends = starts[:maxsplit], ends[:maxsplit]

@@ -32,6 +32,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.stats import traced
 from . import pipeline
 from .pipeline import DeviceTables
 
@@ -105,6 +106,7 @@ def _sweep(ct: DeviceTables, text: torch.Tensor, n: int, K: int, b0: int,
     return carry
 
 
+@traced("matmul")
 def l_arrays_device_matmul(
     ct: DeviceTables, text: torch.Tensor, n: int, *,
     block: int = pipeline.DEFAULT_BLOCK,

@@ -49,6 +49,7 @@ import torch
 
 from ..compile.dfa import ctx_of_byte
 from ..compile.posnfa import PosTables
+from ..utils.stats import DeviceClock, traced
 from . import select, spans, stream
 
 DEFAULT_BLOCK = 32
@@ -454,6 +455,7 @@ def _pos_kb(P: int, K: int, device) -> torch.Tensor:
         P // K, K).T.contiguous()
 
 
+@traced("posnfa")
 def l_arrays_device_nfaset(
     pt: PosTables, text: torch.Tensor, n: int, *, block: int = DEFAULT_BLOCK,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -551,10 +553,12 @@ def _fingerprint(pt: PosTables, source, n: int, chunk_bytes: int,
                               source, n, chunk_bytes, block)
 
 
+@traced("posnfa")
 def stream_candidates_nfaset(
     pt: PosTables, source, *, chunk_bytes: int = 8 << 20,
     block: int = DEFAULT_BLOCK, device="cuda",
     state_dir: Optional[str] = None, retries: int = 3, progress=None,
+    clock: Optional[DeviceClock] = None,
 ):
     """Global candidate (pos, end, pid) int64 arrays over `source` (a uint8
     array-like with len() and slicing), chunks from the corpus end
@@ -564,9 +568,11 @@ def stream_candidates_nfaset(
     rounded down to whole blocks (at least one). Each chunk runs in local
     int32 positions; the tail's ends are rebased on the host in int64, so
     the corpus is not capped (one match longer than 2**31 - 2 bytes would
-    clamp, as on the DFA stream)."""
+    clamp, as on the DFA stream). `clock` sums each chunk's device part
+    (utils/stats.py)."""
     K = block
     dev = torch.device(device)
+    clock = clock or DeviceClock(dev)
     n = len(source)
     C = max(K, chunk_bytes // K * K)   # whole blocks, as the reference
     nc = max(1, -(-n // C))
@@ -588,9 +594,12 @@ def stream_candidates_nfaset(
                 torch.from_numpy(m_local.astype(np.int32)).to(dev),
                 None if pt.n_patterns == 1
                 else torch.from_numpy(ip.astype(np.int32)).to(dev))
+        text = stream._upload(source, a, b, P, dev)
+        ctx_prev0 = 0 if a == 0 else int(ctx[int(source[a - 1])])
+        clock.start()
         L, I, (nf, nm, ni) = chunk_l_arrays_device_nfaset(
-            pt, stream._upload(source, a, b, P, dev), n_local,
-            0 if a == 0 else int(ctx[int(source[a - 1])]), tail, block=K)
+            pt, text, n_local, ctx_prev0, tail, block=K)
+        clock.stop()
         pos, end, pid = spans.candidates_host(L, I)
         nm = nm.cpu().numpy().astype(np.int64)
         new_tail = (nf.cpu().numpy(), np.where(nm >= 0, nm + a, -1),

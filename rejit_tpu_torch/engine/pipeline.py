@@ -31,6 +31,7 @@ import torch
 from ..compile.dfa import DFATables, ctx_of_byte
 from ..kernels import dfa_cuda
 from ..kernels.dfa_cuda import Summary
+from ..utils.stats import traced
 from . import schain
 
 DEFAULT_BLOCK = 32
@@ -217,6 +218,7 @@ def finish(ct: DeviceTables, start_eot: torch.Tensor, L, I, n: int):
     return L, I
 
 
+@traced("split")
 def l_arrays_device(
     ct: DeviceTables, text: torch.Tensor, n: int, *,
     block: int = DEFAULT_BLOCK,
@@ -276,6 +278,7 @@ def ff_phase3(ct: DeviceTables, text: torch.Tensor, n: int, suf: Summary,
     return finish(ct, start_eot(ct, text), L2.view(-1), I2.view(-1), n)
 
 
+@traced("split")
 def l_arrays_device_ff(
     ct: DeviceTables, text: torch.Tensor, n: int, *,
     block: int = DEFAULT_BLOCK, min_skip_fraction: float = 0.25,

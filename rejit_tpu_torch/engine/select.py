@@ -15,6 +15,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..native import lib as native_lib
+from ..utils.stats import traced
 
 
 def _next_candidate(L: np.ndarray, pos: int) -> int:
@@ -50,6 +51,7 @@ def _match_all_py(L: np.ndarray, I: np.ndarray) -> List[Tuple[int, int, int]]:
     return out
 
 
+@traced("select")
 def match_all_candidates(
     pos: np.ndarray, end: np.ndarray, pid: np.ndarray, native: bool
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.stats import traced
 from .spans import candidate_count
 
 
@@ -130,6 +131,7 @@ def compact_selected_device(sel, pos, end, pid, *, out_cap: int):
                  for a in (pos, end, pid))
 
 
+@traced("select")
 def match_all_device(
     L: torch.Tensor, I: Optional[torch.Tensor]
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

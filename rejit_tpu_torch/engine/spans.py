@@ -17,11 +17,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.stats import traced
+
 
 def candidate_count(L: torch.Tensor) -> torch.Tensor:
     return torch.count_nonzero(L >= 0)
 
 
+@traced("compact")
 def candidates_host(
     L: torch.Tensor, I: Optional[torch.Tensor]
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -46,6 +49,7 @@ def candidates_host(
     return pos.to(torch.int32).cpu().numpy(), end.cpu().numpy(), pid
 
 
+@traced("compact")
 def mask_positions(mask: torch.Tensor) -> np.ndarray:
     """Host int64 positions of the set entries of a 1-D bool start mask
     (the literal engine's bitmask route), compacted on the mask's device.
@@ -77,6 +81,7 @@ def partition_select_mask(L: torch.Tensor,
     return cand & (I != prev)
 
 
+@traced("partition_count")
 def partition_count(L: torch.Tensor,
                     I: Optional[torch.Tensor]) -> torch.Tensor:
     """MatchAllCount for run-partition patterns: a device reduction over

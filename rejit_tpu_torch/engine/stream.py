@@ -45,6 +45,7 @@ import torch
 
 from ..compile.dfa import DFATables, ctx_of_byte
 from ..kernels import schain_cuda
+from ..utils.stats import DeviceClock
 from . import pipeline, select, spans
 from .pipeline import DeviceTables
 
@@ -207,7 +208,8 @@ class _State:
         return z["pos"], z["end"], z["pid"]
 
 
-def _split_chunk(ct, buf, n_local, a, tail_global, first_start, block):
+def _split_chunk(ct, buf, n_local, a, tail_global, first_start, block,
+                 clock):
     """One chunk by the split kernels: global (pos, end, pid) and the new
     int64 tail."""
     dev = buf.device
@@ -217,8 +219,10 @@ def _split_chunk(ct, buf, n_local, a, tail_global, first_start, block):
         torch.from_numpy(x.astype(np.int32)).to(dev)
         for x in (tail_global[0], m_local, tail_global[2])
     )
+    clock.start()
     L, I, total = chunk_l_arrays_device(ct, buf, n_local, tail_dev,
                                         first_start, block=block)
+    clock.stop()
     pos, end, pid = spans.candidates_host(L, I)
     tf, tm_, ti = (x.cpu().numpy().astype(np.int64) for x in total)
     tail = (tf, np.where(tm_ >= 0, tm_ + a, np.int64(-1)), ti)
@@ -227,16 +231,18 @@ def _split_chunk(ct, buf, n_local, a, tail_global, first_start, block):
 
 
 def _fused_chunk(ct, buf, n_local, a, tail_global, first_start, block,
-                 use_ff, last):
+                 use_ff, last, clock):
     """One chunk by the fused kernel: global (pos, end, pid) and the new
     int64 tail (host splice of the tail's matches, G composed with the
     tail)."""
     dev = buf.device
     tail_has = torch.from_numpy(tail_global[1] >= 0).to(dev)
+    clock.start()
     L, I, F, cand, G = chunk_l_arrays_device_fused(
         ct, buf, n_local, tail_has, first_start, last=last, block=block,
         use_ff=use_ff,
     )
+    clock.stop()
     idx = torch.nonzero(cand).squeeze(1)
     posl = idx.cpu().numpy().astype(np.int64)
     L_loc = L.index_select(0, idx).cpu().numpy().astype(np.int64)
@@ -274,6 +280,7 @@ def stream_candidates(
     progress=None,
     engine: str = "split",
     use_ff: bool = True,
+    clock: Optional[DeviceClock] = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Global candidate (pos, end, pid) int64 arrays for a huge corpus.
 
@@ -283,7 +290,8 @@ def stream_candidates(
     split kernels per chunk, 'fused' the schain_fused kernel with emit_f;
     chunk_bytes must be a positive multiple of `block` (the fused route's
     K for 'fused', the split route's for 'split'). `progress(i, nc)` is
-    called after chunk i of nc is saved."""
+    called after chunk i of nc is saved. `clock` sums each chunk's
+    device part (utils/stats.py)."""
     if engine not in ("split", "fused"):
         raise ValueError(f"unknown chunk engine {engine!r}")
     if chunk_bytes <= 0 or chunk_bytes % block:
@@ -294,6 +302,7 @@ def stream_candidates(
     if ct is None:
         ct = pipeline.device_tables(tables, device=device)
     dev = ct.packed.device
+    clock = clock or DeviceClock(dev)
     Q = tables.n_states
     n = len(source)
     C = chunk_bytes
@@ -318,8 +327,9 @@ def stream_candidates(
         buf = _upload(source, a, b, P, dev)
         if engine == "fused":
             return _fused_chunk(ct, buf, n_local, a, tail_global, fs, block,
-                                use_ff, last)
-        return _split_chunk(ct, buf, n_local, a, tail_global, fs, block)
+                                use_ff, last, clock)
+        return _split_chunk(ct, buf, n_local, a, tail_global, fs, block,
+                            clock)
 
     return _sweep_chunks(state, nc, eot_tail, run_chunk, retries=retries,
                          progress=progress)
@@ -415,7 +425,7 @@ def _can_accept_states(t: DFATables) -> np.ndarray:
 
 def _window_verdict_device(ct, text, n_local: int, can_t, ae_t, *,
                            at_eot: bool, block: int, first_start: int,
-                           use_ff: bool = True):
+                           clock: DeviceClock, use_ff: bool = True):
     """The window's MatchFirst verdict ON THE DEVICE, five host ints
     (s, L_s, Lo_s, I_s, any_proven): one schain_fused emit_f pass with a
     neutral seed gives local L and end state F per boundary; the
@@ -425,6 +435,7 @@ def _window_verdict_device(ct, text, n_local: int, can_t, ae_t, *,
     Q = ct.n_states
     dev = text.device
     mode = "li" if ct.n_patterns > 1 else "l"
+    clock.start()
     L, I, _G, F = schain_cuda.schain_fused(
         ct, text, n_local, schain_cuda.neutral_seed(Q, dev), block=block,
         mode=mode, use_ff=use_ff, first_start=first_start, emit_f=True,
@@ -453,11 +464,12 @@ def _window_verdict_device(ct, text, n_local: int, can_t, ae_t, *,
         torch.where(sel, I, neg).max(),
         (om & (L >= 0)).any(),
     )])
+    clock.stop()
     return tuple(int(x) for x in out.tolist())
 
 
 def _window_fused_verdict(ct, tables, source, base, end, n, can_t, ae_t,
-                          block, use_ff, staged_full=None):
+                          block, use_ff, clock, staged_full=None):
     """The verdict of window [base, end): its bytes uploaded, or, with
     `staged_full` (a padded device text of the whole corpus, P >= n), a
     device slice of it (no upload; `base` a multiple of SWEEP_ALIGN)."""
@@ -470,11 +482,12 @@ def _window_fused_verdict(ct, tables, source, base, end, n, can_t, ae_t,
         text = _upload(source, base, end, P, ct.packed.device)
     return _window_verdict_device(
         ct, text, n_local, can_t, ae_t, at_eot=at_eot, block=block,
-        first_start=_first_start_at(tables, source, base), use_ff=use_ff,
+        first_start=_first_start_at(tables, source, base), clock=clock,
+        use_ff=use_ff,
     )
 
 
-def _window_l(ct, tables, source, base, end, n, tail_np, block):
+def _window_l(ct, tables, source, base, end, n, tail_np, block, clock):
     """Host (L, I) of window [base, end) by the split kernels under the
     int64 tail `tail_np` (window coordinates), and n_local."""
     n_local = end - base
@@ -485,10 +498,13 @@ def _window_l(ct, tables, source, base, end, n, tail_np, block):
     dev = ct.packed.device
     tail_dev = tuple(torch.from_numpy(x.astype(np.int32)).to(dev)
                      for x in tail_np)
+    text = _upload(source, base, end, P, dev)
+    clock.start()
     L, I, _ = chunk_l_arrays_device(
-        ct, _upload(source, base, end, P, dev), n_local, tail_dev,
-        _first_start_at(tables, source, base), block=block,
+        ct, text, n_local, tail_dev, _first_start_at(tables, source, base),
+        block=block,
     )
+    clock.stop()
     return L.cpu().numpy(), I.cpu().numpy(), n_local
 
 
@@ -515,6 +531,7 @@ def stream_match_first(
     engine: str = "split",
     staged_full=None,
     use_ff: bool = True,
+    clock: Optional[DeviceClock] = None,
 ):
     """Exact leftmost-longest first match (start, end, pid) or None.
 
@@ -527,16 +544,18 @@ def stream_match_first(
     uploads nothing); None = stage the text once after the first window
     when the ladder needs a second and the text is at most 16 first
     windows, else upload every window. Past MAX_WINDOW the ladder falls
-    back to the full chunked scan."""
+    back to the full chunked scan. `clock` sums each window's device
+    part (utils/stats.py)."""
     if ct is None:
         ct = pipeline.device_tables(tables, device=device)
     dev = ct.packed.device
+    clock = clock or DeviceClock(dev)
     fused = engine == "fused"
     Q = tables.n_states
     n = len(source)
     grain = math.lcm(block, SWEEP_ALIGN) if fused else block
     full_kw = dict(ct=ct, chunk_bytes=-(-chunk_bytes // block) * block,
-                   block=block, engine=engine, use_ff=use_ff)
+                   block=block, engine=engine, use_ff=use_ff, clock=clock)
     W = -(-max(chunk_bytes, grain) // grain) * grain
     W0 = W
     auto_stage = fused and staged_full is None and n <= 16 * W0
@@ -562,7 +581,7 @@ def stream_match_first(
             windows += 1
             s_, L_s, Lo_s, I_s, any_p = _window_fused_verdict(
                 ct, tables, source, base, end, n, can_t, ae_t, block,
-                use_ff, staged_full,
+                use_ff, clock, staged_full,
             )
             if s_ < 0:
                 if at_eot:
@@ -584,13 +603,13 @@ def stream_match_first(
                             np.int64(end - base), -1),
                    np.asarray(tables.accept_eot, dtype=np.int64))
             L, I, n_local = _window_l(ct, tables, source, base, end, n, eot,
-                                      block)
+                                      block, clock)
             L_o = L   # exact: optimistic == pessimistic at EOT
         else:
             L, I, n_local = _window_l(ct, tables, source, base, end, n,
-                                      pess, block)
+                                      pess, block, clock)
             L_o, _, _ = _window_l(ct, tables, source, base, end, n, opt,
-                                  block)
+                                  block, clock)
         cand_o = np.flatnonzero(L_o[:n_local + 1] >= 0)
         if len(cand_o) == 0:
             if at_eot:
@@ -621,14 +640,17 @@ def stream_match_full(
     device=None,
     chunk_bytes: int = 8 << 20,
     block: int = pipeline.DEFAULT_BLOCK,
+    clock: Optional[DeviceClock] = None,
 ) -> bool:
     """MatchFull (the pattern spans the whole corpus) with an early False.
 
     Only boundary 0 matters: windows double from the start, by the split
     kernels under the optimistic tail, and the scan stops as soon as the
-    boundary-0 thread provably dies."""
+    boundary-0 thread provably dies. `clock` sums each window's device
+    part (utils/stats.py)."""
     if ct is None:
         ct = pipeline.device_tables(tables, device=device)
+    clock = clock or DeviceClock(ct.packed.device)
     Q = tables.n_states
     n = len(source)
     ident = np.arange(Q, dtype=np.int64)
@@ -643,9 +665,11 @@ def stream_match_full(
                    np.where(np.asarray(tables.accept_eot) >= 0,
                             np.int64(end), -1),
                    np.asarray(tables.accept_eot, dtype=np.int64))
-            L, _, _ = _window_l(ct, tables, source, 0, end, n, eot, block)
+            L, _, _ = _window_l(ct, tables, source, 0, end, n, eot, block,
+                                clock)
             return int(L[0]) == n
-        L_o, _, _ = _window_l(ct, tables, source, 0, end, n, opt, block)
+        L_o, _, _ = _window_l(ct, tables, source, 0, end, n, opt, block,
+                              clock)
         if L_o[0] < 0:
             return False   # the boundary-0 thread provably died
         W *= 2

@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.stats import traced
 from . import scan_cuda
 from .classrun import BIG, finish, member, prev_word, rcummin
 
@@ -49,6 +50,7 @@ def shl(x: torch.Tensor, d: int, fill) -> torch.Tensor:
     return torch.cat([x[d:], pad])
 
 
+@traced("classlit")
 def classlit_l_arrays_device(
     lut: torch.Tensor,
     wlut: torch.Tensor,

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.stats import traced
 from . import scan_cuda
 
 BIG = 2**30
@@ -95,6 +96,7 @@ def finish(L: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.cat([L, tail]), torch.cat([I, tail])
 
 
+@traced("classrun")
 def classrun_l_arrays_device(
     lut: torch.Tensor,
     wlut: torch.Tensor,

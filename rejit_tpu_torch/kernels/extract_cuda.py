@@ -43,6 +43,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.stats import traced
 from . import build
 from .literal import claim, claim_order
 
@@ -168,6 +169,7 @@ def _table(lits: Tuple[bytes, ...], pids: Tuple[int, ...],
             torch.from_numpy(meta).to(dev))
 
 
+@traced("literal_spans")
 def literal_spans(
     text_rows: torch.Tensor, n: int, *, lits: Tuple[bytes, ...],
     pids: Tuple[int, ...], cap: int, ebits: int = 9, pbits: int = 4,

@@ -24,6 +24,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.stats import traced
+
 
 def claim_order(lits: Sequence[object], pids: Sequence[int]) -> List[int]:
     """Literal indices in claim order: longest first, then lowest pattern
@@ -60,6 +62,7 @@ def valid_hits(text_ext: torch.Tensor, n: int, P: int, lit) -> torch.Tensor:
     return h
 
 
+@traced("literal_count")
 def literal_count_device(
     text_ext: torch.Tensor, n: int, *, lits: Tuple[object, ...], P: int
 ) -> torch.Tensor:
@@ -70,6 +73,7 @@ def literal_count_device(
     return total
 
 
+@traced("literal_mask")
 def literal_start_mask_device(
     text_ext: torch.Tensor, n: int, *, lits: Tuple[object, ...], P: int
 ) -> torch.Tensor:
@@ -86,6 +90,7 @@ def literal_start_mask_device(
     return m
 
 
+@traced("literal_mask")
 def literal_start_mask_by_pid_device(
     text_ext: torch.Tensor,
     n: int,

@@ -100,6 +100,7 @@ import torch
 
 from ..engine import pipeline, schain
 from ..engine.pipeline import DeviceTables
+from ..utils.stats import traced
 from . import build, dfa_cuda
 
 # Kernel calls per kernel name; reset with reset_launches().
@@ -493,6 +494,7 @@ def _fused(
 # ---------------------------------------------------------------------------
 
 
+@traced("fused")
 def l_arrays_device_staged(
     ct: DeviceTables, text: torch.Tensor, n: int, *,
     block: int = DEFAULT_BLOCK, use_ff: bool = True,
@@ -507,6 +509,7 @@ def l_arrays_device_staged(
     return L, I
 
 
+@traced("fused")
 def count_device_staged(
     ct: DeviceTables, text: torch.Tensor, n: int, *,
     block: int = DEFAULT_BLOCK, use_ff: bool = True,
