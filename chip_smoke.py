@@ -93,7 +93,16 @@ per source, all started together), then:
 6. runs the literal_spans path: 12 overlap-free keywords on the main text,
    which must launch the kernel again after the cap grows and give the
    spans of `re`, and the same words as a 12-pattern list, whose tokens
-   must equal the CPU run's;
+   must equal the CPU run's; then the literal_count kernel
+   (`literal_count_phase`): held bit-equal to its plain version on
+   `literal_sets`' sets over `literal_text` (one, two and four state
+   words, several launches a set), a `(?i)` set and a 160-byte literal,
+   at n = P, P - 3, 3 segments, 1, 0, -5 and past P, at the text's
+   address and 5 bytes past it; and its path, match_all_count of the
+   literal cell's `foo|bar|baz` on portbench's corpus staged at 10 MB
+   (one launch and nothing else, equal to `bytes.count`), and outside
+   --quick at 256 MiB and 2e9 bytes with the kernel's and the plain
+   version's device ms beside the bound, and the staged call's wall;
 7. runs the scan1d paths, `\\b\\w{3,50}\\b` (classrun, one launch a call)
    and `\\b[a-z]{2,60}ing\\b` (classlit, two), each against the port's DFA
    route and `re`;
@@ -160,8 +169,9 @@ per source, all started together), then:
    config 3 (256 MiB) on the sharded fused route (8 schain_fused calls
    with emit_f a call, and nothing else) and under schain_fused='off'
    (8 dfa_phase1 and 8 dfa_phase3), config 5 (`packet` over 1 GiB of
-   `make_corpus(seed=4, density=0.002)`: the literal route's spans and
-   psum count through the API, no kernel; `sharded_l_arrays` on its DFA
+   `make_corpus(seed=4, density=0.002)`: the literal route's spans
+   through the API, no kernel, and its psum count, one literal_count a
+   shard and nothing else; `sharded_l_arrays` on its DFA
    tables, fused), config 4's tokenizer and the 250-word set (10 MB, split)
    and a sparse text (the FF skip), each equal to the single-device call,
    configs 3 and 5 to `re` and config 5's count to `bytes.count`; the
@@ -271,6 +281,7 @@ SOURCES = {
     "scan1d": "rejit_tpu_torch/kernels/csrc/scan1d.cu",
     "schain_fused_emit_f": "rejit_tpu_torch/kernels/csrc/schain_fused.cu",
     "gather_probe": "rejit_tpu_torch/kernels/csrc/gather_probe.cu",
+    "literal_count": "rejit_tpu_torch/kernels/csrc/literal_count.cu",
 }
 REPLACES = {
     "dfa_phase1": "rejit_tpu/kernels/dfa_pallas.py:95",
@@ -280,6 +291,8 @@ REPLACES = {
     "scan1d": "rejit_tpu/kernels/scan1d.py:94",
     "schain_fused_emit_f": "rejit_tpu/kernels/schain_pallas.py:1070 (emit_f)",
     "gather_probe": "bench/gather_probe.py:46",
+    "literal_count": "rejit_tpu/kernels/literal.py:50 literal_count_device "
+                     "(XLA-fused, no Pallas kernel)",
 }
 DEV = "cuda"
 WORD_CHARS = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz  ", np.uint8)
@@ -1361,6 +1374,108 @@ def literal_spans_vs_plain(xc, text: np.ndarray, sets, caps=(0, 2, 4, 16),
     torch.cuda.synchronize()
     return {"max_abs_err": err, "calls": calls, "P": P, "caps": list(caps),
             "max_row_count": max_count}
+
+
+# The literal cell's pattern and corpus (portbench/configs/rejit-literals.json:
+# `foo` at a word density of 0.001), where the literal_count kernel is timed.
+LITCOUNT_PATTERN = "foo|bar|baz"
+LITCOUNT_SIZES = (10_000_000, 256 << 20, 2_000_000_000)
+# Lane instructions a text byte of the kernel's one-word instance counted
+# every 8 bytes (csrc/literal_count.cu's header): the byte's extract, the
+# table address and the shift (IMADs), the step's LOP3, and an eighth of
+# the count's popc, AND and add.
+LITCOUNT_OPS_PER_BYTE = 4.5
+
+
+def literal_count_vs_plain(rt, lk, rng) -> dict:
+    """Max |literal_count_device - literal_count_plain| on the same CUDA
+    text: literal_sets' sets (one, two and four state words, several
+    launches a set), a `(?i)` class-literal set and a 160-byte literal
+    (past the state: its tail compared) over literal_text, at n = P, P - 3,
+    3 segments, 1, 0, -5 and past P (a shard's n), each at the text's
+    address and 5 bytes past it."""
+    sets = [lits for lits, _ in literal_sets(rng)]
+    sets.append(rt.Pattern("(?i)packet|state", device=DEV).info.literals)
+    sets.append((b"ab c" * 40, b"a", b"ca"))
+    text = literal_text(rng, [(s, None) for s in sets[:-2]], 300_000)
+    text[1000:1160] = np.frombuffer(sets[-1][0], np.uint8)
+    t = torch.from_numpy(text).to(DEV)
+    err, calls, hits = 0, 0, 0
+    for lits in sets:
+        max_m = max(len(x) for x in lits)
+        P = len(text) - max_m
+        for n in (P, P - 3, 3 * lk.SEG_BYTES, 1, 0, -5, P + max_m - 1):
+            for off in (0, 5):
+                got = int(lk.literal_count_device(t[off:], n, lits=lits,
+                                                  P=P - off))
+                want = int(lk.literal_count_plain(t[off:], n, lits=lits,
+                                                  P=P - off))
+                err = max(err, abs(got - want))
+                hits = max(hits, want)
+                calls += 1
+    torch.cuda.synchronize()
+    return {"max_abs_err": err, "calls": calls, "max_count": hits,
+            "groups": sorted({len(lk.count_tables(s)) for s in sets}),
+            "words": sorted({g.words for s in sets
+                             for g in lk.count_tables(s)})}
+
+
+def literal_count_phase(rt, reset, launches, only, quick: bool) -> tuple:
+    """The literal_count kernel: held against its plain version
+    (literal_count_vs_plain), then its path, match_all_count of the
+    literal cell's pattern on its corpus (portbench's generator, seed 7)
+    staged at 10 MB: one launch and nothing else, the count equal to the
+    plain version's and to `bytes.count` of each word; outside --quick the
+    kernel's and the plain version's device ms (CUDA events) at
+    LITCOUNT_SIZES beside the bound, and the staged call's wall. Returns
+    (launches on the path, max_abs_err, times for the kernels line)."""
+    from portbench.corpus import words
+    from rejit_tpu_torch.kernels import literal as lk
+
+    e = literal_count_vs_plain(rt, lk, np.random.default_rng(17))
+    emit({"phase": "literal_count_vs_plain", **e})
+    p = rt.Pattern(LITCOUNT_PATTERN, device=DEV)
+    lits = p.info.literals
+    check(p.engine == "literal" and p.info.overlap_free, "literal cell route")
+    times = {}
+    path_launches = 0
+    for size in (LITCOUNT_SIZES[:1] if quick else LITCOUNT_SIZES):
+        host = words.make(size, 7, DEV, "foo", 0.001).cpu().numpy()
+        corpus = rt.stage(host, DEV)
+        ext, P_arr = corpus.padded_ext(3)
+        P = P_arr - 3
+        want = int(lk.literal_count_plain(ext, size, lits=lits, P=P))
+        reset()
+        got = p.match_all_count(corpus)
+        got_launches = launches()
+        check(got == want and only(got_launches, literal_count=1),
+              f"literal cell path at {size}: {got} vs {want}, "
+              f"{got_launches}")
+        if size == LITCOUNT_SIZES[0]:
+            hb = host.tobytes()
+            check(got == sum(hb.count(w) for w in (b"foo", b"bar", b"baz")),
+                  "literal cell count differs from bytes.count")
+            path_launches = got_launches["literal_count"]
+        row = {"n": size, "count": got, "launches": got_launches}
+        if not quick:
+            reps = 20 if size < (1 << 30) else 10
+            row.update({
+                "ms": time_ms(lambda: lk.literal_count_device(
+                    ext, size, lits=lits, P=P), reps),
+                "plain_ms": time_ms(lambda: lk.literal_count_plain(
+                    ext, size, lits=lits, P=P), 3, 1),
+                **bound(size, LITCOUNT_OPS_PER_BYTE * size),
+                "wall": wall_s(lambda: p.match_all_count(corpus), reps),
+                "device_time_ms": 1e3 * p.last_stats.device_time_s,
+            })
+            row["pct_of_bound"] = 100 * row["bound_ms"] / row["ms"]
+            if size == LITCOUNT_SIZES[0]:
+                times = {"literal_count_" + k: row[k] for k in
+                         ("ms", "plain_ms", "bound_ms", "bound_by")}
+        emit({"phase": "literal_count_path", **row})
+        del corpus, ext, host
+        torch.cuda.empty_cache()
+    return path_launches, e["max_abs_err"], times
 
 
 SCAN_KINDS = ("random", "increasing", "decreasing", "constant",
@@ -2732,7 +2847,8 @@ def mesh_phase(rt, root: str, main_text: bytes, words, reset, launches,
                         lambda: p5.match_all_arrays(c5, mesh=m))
             check(same_arrays(out, single5), f"config 5 D={D} differs")
             cnt = drive(f"config 5 count D={D}",
-                        lambda: p5.match_all_count(c5, mesh=m))
+                        lambda: p5.match_all_count(c5, mesh=m),
+                        literal_count=D)
             check(cnt == len(want5), f"config 5 count D={D}: {cnt}")
         d5 = rt.Pattern(CONFIG1_PATTERN, rt.Config(engine="dfa"), device=DEV)
         arr5 = np.frombuffer(c5, np.uint8)
@@ -3233,12 +3349,13 @@ def main() -> int:
     from rejit_tpu_torch.kernels import build
     from rejit_tpu_torch.kernels import dfa_cuda as dc
     from rejit_tpu_torch.kernels import extract_cuda as xc
+    from rejit_tpu_torch.kernels import literal as lk
     from rejit_tpu_torch.kernels import probe_cuda as pc
     from rejit_tpu_torch.kernels import scan_cuda as scn
     from rejit_tpu_torch.kernels import schain_cuda as sc
     from rejit_tpu_torch.utils.corpus import make_corpus
 
-    counters = (dc, sc, xc, scn, pc)
+    counters = (dc, sc, xc, scn, pc, lk)
 
     def launches():
         torch.cuda.synchronize()
@@ -3620,6 +3737,12 @@ def main() -> int:
           "matches": len(kw_want), "launches": kw_launches,
           "list_launches": tok_kw_launches, "equal_to_re": True,
           "list_equal_to_cpu": True})
+    # The literal_count kernel: against its plain version, its path (the
+    # literal cell's count), and its times at 10 MB, 256 MiB and 2e9 bytes.
+    lc_launches, errs["literal_count"], lc_times = literal_count_phase(
+        rt, reset, launches, only, quick)
+    check(errs["literal_count"] == 0, "literal_count differs from its "
+          "plain version")
 
     # 7. The scan1d paths: classrun and classlit on the config-3 text.
     b3 = {}
@@ -3770,8 +3893,10 @@ def main() -> int:
     check(all(r.get("kernels_a_call") == 1 for r in sprof.values()),
           f"scan1d kernels a call: {sprof}")
 
+    times.update(lc_times)
     kernels = []
     path_launches = {
+        "literal_count": lc_launches,
         **split_launches, "schain_fused": main_launches["schain_fused"],
         "literal_spans": kw_launches["literal_spans"],
         "scan1d": sum(b3.values()),

@@ -17,7 +17,8 @@ package does, see `choose_engine`):
     (kernels/extract_cuda.py) writes the span keys in one pass;
   - L/I route (overlapping sets, staged corpora, `pallas='off'`): the
     claim in torch ops, then compaction and greedy selection;
-  - an overlap-free MatchAllCount is a device count.
+  - an overlap-free MatchAllCount is a device count: the literal_count
+    kernel on the card (kernels/literal.py), torch ops on the CPU.
 - classrun / classlit (`\\b?[class]{lo,hi}\\b?`, and the same with a
   literal suffix): elementwise torch ops around cumulative scans, the
   scan1d kernel on the card (kernels/scan_cuda.py).
@@ -52,7 +53,8 @@ package does, see `choose_engine`):
 `Config.pallas` picks the kernel routes of the literal and elementwise
 engines (B3, B4): 'auto' takes them on the card, 'on' on either device
 (the kernels' plain versions on the CPU), 'off' takes the torch-op routes;
-the split route keeps its kernels under every setting.
+the split route and the literal count keep their kernels under every
+setting.
 
 A DFA blowup under automatic engine choice never hard-fails a supported
 pattern (`Pattern._blowup_fallback`): subset construction again at 4x the

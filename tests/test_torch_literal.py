@@ -85,6 +85,127 @@ def test_literal_functions_equal_jax(name, n):
         np.testing.assert_array_equal(by_pid[p].numpy(), bits.astype(bool))
 
 
+# The literal_count kernel's algorithm (csrc/literal_count.cu) in numpy,
+# from the wrapper's own tables: sets past one state word (35 positions),
+# past two (the 12 keywords, 68), a 70-byte literal (one group of four
+# words), and a 150-byte literal beside short ones (its tail compared past
+# the state; three launches).
+COUNT_SETS = {**LIT_SETS, "keywords": [KW_ALT], "seventy": [b"ab" * 35],
+              "long": [b"abc" * 50 + b"|ca|bcab|" + b"|".join(KEYWORDS)]}
+
+
+def _shift_and_count(ext, n, P, lits, head):
+    """The kernel's count in numpy for a text `head` bytes past a 32-byte
+    address: each group of count_tables in its own pass; segments of
+    segment_bytes bytes cut at 32-byte addresses, each first stepping the
+    lp - 1 bytes before it. A fast segment (whole below min(n, P + lp - 1)
+    and P, its warm-up inside the text) counts popc(state & counted) at
+    the last byte of each aligned group of `check` bytes; any other
+    segment counts each position's ends by the accept mask. The
+    Shift-And step carries bit 31 into the next word and masks the start
+    bits out at and past P; ends count below min(n, P + lp - 1); a long
+    literal's tail is compared byte by byte where its state part ends, its
+    end held below n."""
+    total = 0
+    for g in lk.count_tables(lits):
+        end = min(n, P + g.lp - 1)
+        if end <= 0:
+            continue
+        seg = lk.segment_bytes(g)
+        q0 = np.arange(-(-(end + head) // seg)) * seg
+        fast = ((q0 - (g.lp - 1) >= head) & (q0 + seg - head <= end)
+                & (q0 + seg - head <= P))
+        s0 = np.maximum(q0 - head, 0)
+        s1 = np.minimum(q0 + seg - head, end)
+        lo = np.maximum(s0 - (g.lp - 1), 0)
+        grouped = fast & (g.check > 1)
+        d = np.zeros((len(q0), g.words), np.uint32)
+        for t in range(int((s1 - lo).max())):
+            p = lo + t
+            on = p < s1
+            row = g.table[ext[np.minimum(p, len(ext) - 1)]]
+            new = np.empty_like(d)
+            for w in range(g.words):
+                sh = d[:, w] << np.uint32(1)
+                if w:
+                    sh |= d[:, w - 1] >> np.uint32(31)
+                s = g.start[w]
+                new[:, w] = np.where(p < P, sh | s, sh & ~s) & row[:, w]
+            d = np.where(on[:, None], new, d)
+            counted = on & (p >= s0)
+            at = counted & grouped & ((p - s0 + 1) % g.check == 0)
+            total += int(np.bitwise_count(d[at] & g.counted).sum())
+            hit = counted & ~grouped & (d & g.accept).any(axis=1)
+            if not len(g.tail):
+                total += int(np.bitwise_count(d[hit] & g.accept).sum())
+                continue
+            for e in p[hit]:
+                c = ext[e + 1:e + 1 + len(g.tail)]
+                total += bool(e + len(g.tail) < n and np.all(
+                    g.tail[np.arange(len(c)), c >> 5] >> (c & 31) & 1))
+    return total
+
+
+def _planted(lits, size, seed):
+    """SOUP bytes with each literal planted 8 times (a class position as
+    one of its bytes), so every set hits."""
+    rng = np.random.default_rng(seed)
+    text = _text(size, seed)
+    for lit in lits:
+        for at in rng.choice(size - len(lit), size=8, replace=False):
+            text[at:at + len(lit)] = [
+                b if isinstance(lit, bytes) else rng.choice(b)
+                for b in lit]
+    return text
+
+
+@pytest.mark.parametrize("name", list(COUNT_SETS))
+def test_literal_count_model_equals_plain(name):
+    """The model equals literal_count_plain (and, on LIT_SETS, the JAX
+    package's literal_count_device) at n = P, P - 1, a segment edge, 1, 0,
+    negative and past P (starts stop at P, ends read the real bytes past
+    it), for texts at a 16-byte address and 3 bytes past one."""
+    lits, _ = _lits(COUNT_SETS[name])
+    P = 4096
+    max_m = max(len(l) for l in lits)
+    ext = _planted(lits, P + max_m, 7)
+    te, je = torch.from_numpy(ext), jnp.asarray(ext)
+    groups = lk.count_tables(lits)
+    assert max(g.words for g in groups) == {
+        "twelve": 2, "keywords": 4, "seventy": 4, "long": 4}.get(name, 1)
+    assert [g.check for g in groups] == {
+        "mixed_overlapping": [4], "classlit": [2], "twelve": [2],
+        "keywords": [4], "long": [1, 4]}.get(name, [8])
+    for n in (P, P - 1, 2 * lk.SEG_BYTES, 1, 0, -3, P + 2, P + max_m):
+        want = int(lk.literal_count_plain(te, n, lits=lits, P=P))
+        if name in LIT_SETS:
+            assert want == int(jlk.literal_count_device(
+                je, jnp.int32(n), lits=lits, P=P))
+        for head in (0, 3, 29):
+            assert _shift_and_count(ext, n, P, lits, head) == want, (n, head)
+        if n == P:
+            assert want > 0
+
+
+def test_literal_count_wrapper_checks_and_counts_no_launch():
+    ext = torch.zeros(4096 + 2, dtype=torch.uint8)
+    with pytest.raises(TypeError):
+        lk.literal_count_device(ext.int(), 10, lits=(b"abc",), P=4096)
+    with pytest.raises(TypeError):
+        lk.literal_count_device(ext.reshape(2, -1), 10, lits=(b"abc",),
+                                P=2048)
+    with pytest.raises(ValueError):      # reads P + 2 bytes
+        lk.literal_count_device(ext[:-1], 10, lits=(b"abc",), P=4096)
+    with pytest.raises(ValueError):
+        lk.literal_count_device(ext[::2], 10, lits=(b"a",), P=2048)
+    with pytest.raises(ValueError):
+        lk.literal_count_device(ext, 10, lits=(), P=4096)
+    lk.reset_launches()
+    assert int(lk.literal_count_device(ext, 10, lits=(b"\0\0\0",),
+                                       P=4096)) == 8
+    assert lk.LAUNCHES == {"literal_count": 0}
+
+
 def test_first_candidate_and_mask_positions():
     m = torch.zeros(100, dtype=torch.bool)
     assert spans.first_candidate(m, 90) == 90
